@@ -1,0 +1,193 @@
+"""Multi-round forward-reverse auction kernel (``csrc/fr_kernel.cu``).
+
+Replaces the JAX package's Pallas TPU kernel ``ops/pallas_fr.py:
+_fr_kernel`` (with ``_fr_one_block``, ``_generic_sub`` and the fused
+top-2 helpers), driven there by ``fr_chunk_pallas``.  ``fr_chunk`` runs
+up to ``rounds`` rounds of ``ops/fr_dense.py:fr_round(skip_certificate=
+True)`` on every instance that is not done, each instance leaving the
+loop as soon as its matching is full.
+
+What bounds it on an H100.  Each round of an instance reads the value
+rows of its current bidders (``S`` values each) and does little
+arithmetic on them, so the kernel is bound by those bytes and, once few
+bidders remain, by the latency of one round: a dependent chain of row
+loads, a warp reduction, shared-memory atomics and five block-wide
+barriers.  The design against that:
+
+- one CTA per instance, the whole instance state in shared memory for
+  the whole loop, so the only device-memory traffic of a round is the
+  bidders' rows (and nothing at all for finished instances, which exit
+  at once);
+- only unassigned bidders read their rows: late rounds, with one or two
+  bidders, touch a few KB instead of the whole matrix;
+- both layouts stay in device memory (``values_t`` object-major and its
+  transpose), so a bidder's row is contiguous and coalesced in either
+  mode; the transpose costs one extra copy of the values;
+- many instances per SM (256 threads each at 256²) hide one instance's
+  round latency behind the others'.
+
+On CPU tensors :func:`fr_chunk` runs the plain PyTorch version
+:func:`fr_chunk_reference`; on CUDA tensors it launches the kernel or
+raises.  ``LAUNCHES`` counts the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..solution import UNASSIGNED
+from . import _build
+from .fr_dense import FRState, fr_round
+
+#: kernel launches made by :func:`fr_chunk` in this process
+LAUNCHES = 0
+
+#: the largest instance side the kernel takes (the fused path's limit:
+#: N * M <= 1024**2 with N == M)
+MAX_SIDE = 1024
+
+_NO_LIMIT = 2**31 - 1
+_lib = None
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load("fr_kernel")
+        p = ctypes.c_void_p
+        lib.slap_fr_rounds.argtypes = [
+            ctypes.c_int, p, p, p, p, p, p, p, p, p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
+        ]
+        lib.slap_fr_rounds.restype = ctypes.c_int
+        lib.slap_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.slap_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(values_t: torch.Tensor, states: FRState) -> None:
+    if values_t.dim() != 3:
+        raise ValueError("values_t must be [B, M, N]")
+    b, m, n = values_t.shape
+    if m != n:
+        raise ValueError(f"fr_chunk needs square instances, got {m}x{n}")
+    if values_t.dtype not in (torch.float32, torch.int32):
+        raise ValueError(
+            f"fr_chunk takes float32 or int32 values, got {values_t.dtype}"
+        )
+    for name, want in (
+        ("prices", (b, m)), ("profits", (b, n)), ("p2o", (b, n)),
+        ("o2p", (b, m)), ("eps", (b,)), ("done", (b,)),
+    ):
+        t = getattr(states, name)
+        if tuple(t.shape) != want:
+            raise ValueError(f"states.{name} has shape {tuple(t.shape)}, "
+                             f"expected {want}")
+        if t.device != values_t.device:
+            raise ValueError(f"states.{name} is on {t.device}, values_t "
+                             f"on {values_t.device}")
+
+
+def fr_chunk_reference(values_t, states: FRState, rounds: int,
+                       bid_rows=None):
+    """Plain PyTorch version of the kernel: a loop of ``fr_round(
+    skip_certificate=True)`` with the kernel's early exit.  Finished
+    instances are frozen by ``fr_round`` itself, so stopping once all
+    are done changes nothing.  ``bid_rows [B]`` int64, if given, gains
+    the number of bidder rows each instance read (the unassigned
+    entries of the bidding side, per round)."""
+    s = states
+    for _ in range(rounds):
+        if bool(s.done.all()):
+            break
+        if bid_rows is not None:
+            col = torch.where(s.forward_mode[:, None], s.p2o, s.o2p)
+            bid_rows += ((col == UNASSIGNED) & ~s.done[:, None]).sum(dim=1)
+        s = fr_round(values_t, s, 0, 0, _NO_LIMIT, skip_certificate=True)
+    s = s._replace(
+        eps=states.eps,
+        nreductions=states.nreductions,
+        optimal_found=states.optimal_found | s.done,
+    )
+    return s, s.done.all()
+
+
+def fr_chunk(values_t, states: FRState, rounds: int, values=None,
+             bid_rows=None):
+    """``rounds`` fused rounds over a batched :class:`FRState`; returns
+    ``(states, all_done)``.
+
+    ``values_t [B, M, N]`` (M == N <= 1024, float32 or int32 lattice);
+    ``values`` is its transpose ``[B, N, M]`` if the caller already has
+    it (built here otherwise).  ``eps`` and ``nreductions`` pass
+    through; ``optimal_found |= done``.  CPU tensors run
+    :func:`fr_chunk_reference`; CUDA tensors launch the kernel."""
+    _check(values_t, states)
+    if values_t.device.type == "cpu":
+        return fr_chunk_reference(values_t, states, rounds, bid_rows)
+    if values_t.device.type != "cuda":
+        raise ValueError(f"fr_chunk runs on cpu or cuda, not "
+                         f"{values_t.device}")
+    return _fr_chunk_cuda(values_t, states, rounds, values, bid_rows)
+
+
+def _fr_chunk_cuda(values_t, states, rounds, values, bid_rows):
+    global LAUNCHES
+    b, m, n = values_t.shape
+    if n > MAX_SIDE:
+        raise ValueError(f"the FR kernel takes instances up to "
+                         f"{MAX_SIDE}², got {n}²")
+    dtype = values_t.dtype
+    vt = values_t.contiguous()
+    v = (vt.transpose(1, 2) if values is None else values).contiguous()
+    if v.shape != vt.shape or v.dtype != dtype or v.device != vt.device:
+        raise ValueError("values must be values_t's transpose")
+    # the kernel updates these copies in place; the inputs stay intact
+    prices = states.prices.to(dtype).contiguous().clone()
+    profits = states.profits.to(dtype).contiguous().clone()
+    p2o = states.p2o.to(torch.int32).contiguous().clone()
+    o2p = states.o2p.to(torch.int32).contiguous().clone()
+    eps = states.eps.to(dtype).contiguous()
+    meta = torch.stack(
+        [states.nits, states.forward_mode, states.done, states.since_inc,
+         states.stall_k], dim=1,
+    ).to(torch.int32).contiguous()
+    if bid_rows is not None and (
+        bid_rows.dtype != torch.int64 or tuple(bid_rows.shape) != (b,)
+        or bid_rows.device != vt.device or not bid_rows.is_contiguous()
+    ):
+        raise ValueError("bid_rows must be a contiguous int64 [B] tensor "
+                         "on the values' device")
+    lib = _kernel_lib()
+    with torch.cuda.device(vt.device):
+        stream = torch.cuda.current_stream(vt.device).cuda_stream
+        rc = lib.slap_fr_rounds(
+            int(dtype == torch.int32), v.data_ptr(), vt.data_ptr(),
+            prices.data_ptr(), profits.data_ptr(), p2o.data_ptr(),
+            o2p.data_ptr(), eps.data_ptr(), meta.data_ptr(),
+            bid_rows.data_ptr() if bid_rows is not None else None,
+            b, n, int(rounds), stream,
+        )
+    if rc != 0:
+        msg = lib.slap_cuda_error_string(rc).decode()
+        raise RuntimeError(f"FR kernel launch failed: {msg} ({rc})")
+    LAUNCHES += 1
+    done = meta[:, 2] != 0
+    new = FRState(
+        prices=prices,
+        profits=profits,
+        p2o=p2o,
+        o2p=o2p,
+        eps=states.eps,
+        forward_mode=meta[:, 1] != 0,
+        since_inc=meta[:, 3].contiguous(),
+        stall_k=meta[:, 4].contiguous(),
+        nits=meta[:, 0].contiguous(),
+        nreductions=states.nreductions,
+        optimal_found=states.optimal_found | done,
+        done=done,
+    )
+    return new, done.all()

@@ -1,0 +1,57 @@
+"""Tracing: gated host and round prints, and a profiler context.
+
+Gated on the same ``SLAP_TPU_DEBUG`` environment variable as the JAX
+package.  PyTorch runs eagerly, so a round trace formats its tensors
+when it is called (which synchronises with the device); with tracing
+off the calls cost one flag test.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import sys
+from typing import Iterator
+
+_DEBUG = bool(os.environ.get("SLAP_TPU_DEBUG"))
+
+
+def set_debug(enabled: bool) -> None:
+    """Enable or disable the gated traces."""
+    global _DEBUG
+    _DEBUG = bool(enabled)
+
+
+def is_enabled() -> bool:
+    """Whether tracing is currently enabled."""
+    return _DEBUG
+
+
+def trace_host(fmt: str, *args) -> None:
+    """Driver-level event (chunk hand-offs, modes) printed to stderr
+    when tracing is enabled."""
+    if _DEBUG:
+        print(fmt.format(*args), file=sys.stderr, flush=True)
+
+
+def trace_round(fmt: str, *args) -> None:
+    """Per-round trace of the plain rounds; tensor arguments are
+    printed as lists."""
+    if _DEBUG:
+        vals = [a.tolist() if hasattr(a, "tolist") else a for a in args]
+        print(fmt.format(*vals), file=sys.stderr, flush=True)
+
+
+@contextlib.contextmanager
+def profile_solve(trace_path: str = "slap_torch_trace.json") -> Iterator:
+    """Profile a solve with ``torch.profiler`` (CPU and, where present,
+    CUDA activity) and write a Chrome trace to ``trace_path``:
+    ``with profile_solve() as prof: solve_batch(...)``."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(trace_path)

@@ -1,0 +1,70 @@
+"""The port stands alone: it imports neither JAX nor the JAX package.
+
+Importing any submodule of ``sparse_linear_assignment_tpu`` runs that
+package's ``__init__``, which imports jax and changes global JAX
+configuration; the port must never trigger it.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import sparse_linear_assignment_tpu_torch as port
+
+PKG = Path(port.__file__).resolve().parent
+FORBIDDEN = ("jax", "jaxlib", "sparse_linear_assignment_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import sparse_linear_assignment_tpu_torch as p\n"
+        "import sparse_linear_assignment_tpu_torch.ops.fr_kernel\n"
+        "import sparse_linear_assignment_tpu_torch.utils.trace\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib') or "
+        "m.startswith(('jax.', 'jaxlib.')) or m == "
+        "'sparse_linear_assignment_tpu' or m.startswith("
+        "'sparse_linear_assignment_tpu.'))\n"
+        "print(','.join(bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=PKG.parent, timeout=120, check=True,
+    )
+    assert out.stdout.strip() == "", out.stdout
+
+
+def test_sources_import_no_jax():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) >= 8
+    offenders = []
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{path.name}: {n}" for n in names if _forbidden(n)]
+    assert offenders == []
+
+
+def test_chip_smoke_imports_no_jax():
+    smoke = PKG.parent / "chip_smoke.py"
+    tree = ast.parse(smoke.read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    assert not [n for n in names if _forbidden(n)]
+    assert any(n.startswith("sparse_linear_assignment_tpu_torch")
+               for n in names)
