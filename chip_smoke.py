@@ -5,12 +5,19 @@
 
 Run from the root of a checkout.  Builds the CUDA kernels from
 ``sparse_linear_assignment_tpu_torch/csrc`` with ``nvcc`` (first use),
-holds every kernel against its plain PyTorch version on the card, drives
-the port's main path (batched dense assignment through the
-forward-reverse auction) at the north-star size, 4096 instances of
-256x256 with integer costs in [1, 1000) on the int32 lattice, and
-checks the answers: full matchings, a dual certificate of exact
-optimality for every instance, and scipy's objective on a sample.
+holds every kernel against its plain PyTorch version on the card, and
+drives the port's paths through ``solve_batch``:
+
+- the batched dense forward-reverse auction at the north-star size,
+  4096 instances of 256x256 with integer costs in [1, 1000) on the
+  int32 lattice: full matchings, a dual certificate of exact optimality
+  for every instance, scipy's objective on a sample;
+- big dense singles on the multi-CTA kernel: one 4096x4096 instance
+  (scipy's objective) and one 8192x8192 instance made on the card (a
+  float64 price certificate);
+- the native straggler tail of the host-costs branch (scipy's
+  objectives).
+
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -21,6 +28,7 @@ the port's package is not beside this script.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -192,6 +200,215 @@ def phase_breakdown(batch, fr_kernel, fr_init, costs, scale, rounds,
           "kernel_share_of_sum": t["kernel_ms"] / total})
 
 
+def phase_big_kernel_vs_plain(fr_big, fr_init):
+    """The multi-CTA kernel against its plain version, bit for bit, on
+    every FRState field and the bidder-row counts, after 7, 40 and 400
+    rounds and at done."""
+    gen = torch.Generator(device="cuda")
+    cases = []
+    for n, hi in ((2048, 1000), (2048, 8), (1152, 1000)):
+        gen.manual_seed(SEED + n + hi)
+        costs = torch.randint(1, hi, (1, n, n), generator=gen,
+                              device="cuda", dtype=torch.int32).float()
+        work = (-costs).contiguous()
+        vt = work.transpose(1, 2).contiguous()
+        got = want = fr_init(vt, 1.0 / (n + 1))
+        rows_k = torch.zeros(1, dtype=torch.int64, device="cuda")
+        rows_p = torch.zeros(1, dtype=torch.int64, device="cuda")
+        total = 0
+        for chunk in [7, 33, 360] + [4000] * 25:
+            got, _ = fr_big.fr_big_chunk(vt, got, chunk, values=work,
+                                         bid_rows=rows_k)
+            want, _ = fr_big.fr_big_chunk_reference(vt, want, chunk,
+                                                    bid_rows=rows_p)
+            total += chunk
+            bad, _ = states_equal(got, want)
+            if not torch.equal(rows_k, rows_p):
+                bad.append("bid_rows")
+            assert not bad, (n, hi, total, bad)
+            if bool(got.done[0]):
+                break
+        assert bool(got.done[0]), (n, hi, "not done", total)
+        cases.append({"n": n, "costs_hi": hi, "nits": int(got.nits[0]),
+                      "bid_rows": int(rows_k[0])})
+    emit({"phase": "big_kernel_vs_plain", "kernel": "fr_big_kernel",
+          "checkpoints": "after 7, 40, 400 rounds, then every 4000 to "
+                         "done", "cases": cases, "tolerance": 0,
+          "max_abs_err": 0.0,
+          "fields": "all FRState fields + bid_rows, bit-exact"})
+
+
+def certify_prices(work, st, eps, slack):
+    """Float64 price certificate of a full matching: every person's
+    chosen profit is at least its row's max profit minus eps, up to
+    ``slack`` (the f32 path's rounding).  Returns the worst shortfall
+    beyond eps."""
+    n = work.shape[1]
+    p = st.prices[0].double()
+    p2o = st.p2o[0].long()
+    worst = -float("inf")
+    for r0 in range(0, n, 512):
+        prof = work[0, r0:r0 + 512].double() - p[None, :]
+        chosen = prof.gather(1, p2o[r0:r0 + 512, None])[:, 0]
+        worst = max(worst, float((prof.amax(dim=1) - eps - chosen).max()))
+    assert worst <= slack, ("price certificate", worst)
+    return worst
+
+
+def phase_big_single(port, batch, fr_big, fr_kernel, fr_init, scipy_lsa):
+    """Big dense singles through ``solve_batch``: 4096² with host and
+    device costs as the JAX bench drives it (scipy's objective), then
+    8192² made on the card (price certificate).  Returns what the
+    later phases reuse."""
+    n = 4096
+    rng = np.random.default_rng(SEED)
+    costs = rng.integers(1, 1000, size=(1, n, n)).astype(np.float64)
+    dev = torch.from_numpy(costs.astype(np.float32)).cuda()
+    eps = 1.0 / (n + 1)
+
+    def solve():
+        return port.solve_batch(costs, costs_device=dev, eps=eps,
+                                dtype=np.float32)
+
+    fr_big.LAUNCHES = 0
+    fused_before = fr_kernel.LAUNCHES
+    first_ms, sol = sync_ms(solve)
+    launches = fr_big.LAUNCHES
+    assert launches > 0, "the big-single path launched no fr_big kernel"
+    assert fr_kernel.LAUNCHES == fused_before, "fr_kernel ran on a big single"
+    warm_ms, sol2 = sync_ms(solve, reps=3)
+    assert np.array_equal(sol.person_to_object, sol2.person_to_object)
+    assert int(sol.num_unassigned[0]) == 0, "unassigned persons at 4096²"
+    t0 = time.perf_counter()
+    r, c = scipy_lsa(costs[0])
+    scipy_s = time.perf_counter() - t0
+    assert sol.objective[0] == costs[0][r, c].sum(), "4096² objective"
+    nits = int(sol.nits[0])
+    emit({"phase": "big_single", "n": n, "costs": "integers in [1, 1000), "
+          "host f64 + device f32", "eps": eps, "first_call_ms": first_ms,
+          "warm_median_ms": warm_ms, "nits": nits,
+          "rounds_per_s": nits / (warm_ms / 1e3),
+          "fr_big_launches": launches, "fr_kernel_launches": 0,
+          "objective": float(sol.objective[0]), "scipy_equal": True,
+          "scipy_s": scipy_s})
+
+    n8 = 8192
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + n8)
+    c8 = torch.randint(1, 1000, (1, n8, n8), generator=gen, device="cuda",
+                       dtype=torch.int32).float()
+    eps8 = 1.0 / (n8 + 1)
+    wall8, sol8 = sync_ms(lambda: port.solve_batch(
+        None, costs_device=c8, eps=eps8, dtype=np.float32))
+    assert int(sol8.num_unassigned[0]) == 0, "unassigned persons at 8192²"
+    # the same deterministic solve through the kernel, for its prices
+    vt8, work8 = batch._stage(c8, True, None)
+    st = fr_init(vt8, eps8)
+    while not bool(st.done[0]):
+        st, _ = fr_big.fr_big_chunk(vt8, st, 2 * n8, values=work8)
+    assert np.array_equal(st.p2o.cpu().numpy(), sol8.person_to_object)
+    slack = 1e-3
+    worst = certify_prices(work8, st, eps8, slack)
+    emit({"phase": "big_single_8192", "n": n8,
+          "costs": "integers in [1, 1000) made on the card",
+          "eps": eps8, "wall_ms": wall8, "nits": int(sol8.nits[0]),
+          "rounds_per_s": int(sol8.nits[0]) / (wall8 / 1e3),
+          "objective": float(sol8.objective[0]),
+          "certificate": "f64 chosen profit >= row max - eps - slack",
+          "slack": slack, "worst_shortfall": worst})
+    del c8, vt8, work8, st
+    return costs, dev, eps, launches, warm_ms
+
+
+def phase_big_breakdown(batch, fr_init, costs, dev, eps, warm_ms):
+    """Where the wall of one warm 4096² big-single solve goes: each step
+    timed on its own (median of 3, each ended by a device sync)."""
+    from sparse_linear_assignment_tpu_torch.solution import o2p_from_p2o
+
+    n = costs.shape[1]
+    t = {}
+    t["stage_ms"], (vt, work) = sync_ms(
+        lambda: batch._stage(dev, True, None), reps=3)
+    t["rounds_ms"], (p2o_dev, _, _) = sync_ms(
+        lambda: batch._fr_big_solve(vt, work, eps, 100_000), reps=3)
+    t["readback_ms"], p2o = sync_ms(lambda: p2o_dev.cpu().numpy(), reps=3)
+    t["host_objective_ms"], _ = sync_ms(lambda: np.take_along_axis(
+        costs, p2o[:, :, None], axis=2).sum(), reps=3)
+    t["host_post_ms"], _ = sync_ms(lambda: o2p_from_p2o(p2o, n), reps=3)
+    total = sum(t.values())
+    emit({"phase": "big_breakdown", "n": n, **t, "sum_ms": total,
+          "warm_wall_ms": warm_ms,
+          "rounds_share_of_sum": t["rounds_ms"] / total,
+          "note": "rounds_ms holds the kernel chunks and the per-chunk "
+                  "done readback; fr_init is inside it"})
+
+
+def phase_big_kernel_time(batch, fr_big, fr_init, dev, eps):
+    """The 4096² solve's kernel alone: CUDA-event time of one launch
+    from the initial state to done, the plain version on the same
+    input for the same rounds, and the bound."""
+    n = dev.shape[1]
+    vt, work = batch._stage(dev, True, None)
+    s0 = fr_init(vt, eps)
+    budget = 100_000
+    rows = torch.zeros(1, dtype=torch.int64, device="cuda")
+    got, done = fr_big.fr_big_chunk(vt, s0, budget, values=work,
+                                    bid_rows=rows)
+    assert bool(done)
+    nits, bid_rows = int(got.nits[0]), int(rows[0])
+    kernel_ms = event_ms(
+        lambda: fr_big.fr_big_chunk(vt, s0, budget, values=work), reps=5)
+    plain_ms, (want, _) = sync_ms(
+        lambda: fr_big.fr_big_chunk_reference(vt, s0, nits))
+    bad, err = states_equal(got, want)
+    assert not bad, ("big kernel at 4096²", bad)
+    elem = vt.element_size()
+    state_bytes = 2 * 4 * n * 4              # prices, profits, p2o, o2p
+    bytes_once = n * n * elem + state_bytes  # one layout + the state
+    ops = 2 * n * bid_rows                   # a subtract and a max each
+    bound_bytes_ms = bytes_once / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = ops / F32_OPS_PER_S * 1e3
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    bound_by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
+    row_bytes = bid_rows * n * elem
+    emit({"phase": "big_kernel_time", "n": n, "dtype": "float32",
+          "nits": nits, "ms": kernel_ms, "us_per_round": kernel_ms * 1e3 /
+          nits, "plain_ms": plain_ms, "plain_rounds": nits,
+          "plain_ms_per_round": plain_ms / nits, "bound_ms": bound_ms,
+          "bound_by": bound_by, "bytes_once": bytes_once,
+          "bid_rows": bid_rows, "bidder_row_bytes": row_bytes,
+          "bidder_row_bound_ms": row_bytes / HBM_BYTES_PER_S * 1e3,
+          "library_ms": None, "plain_bit_exact": True})
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err}
+
+
+def phase_native_tail(port, batch, scipy_lsa):
+    """The host-costs branch's native straggler tail: a 20-round first
+    chunk leaves the instances undone, the native engine finishes them
+    on the card's host."""
+    b, n = 64, 256
+    rng = np.random.default_rng(SEED + 1)
+    costs = rng.integers(1, 1000, size=(b, n, n)).astype(np.float64)
+    saved = batch._fr_fused_schedule
+    batch._fr_fused_schedule = lambda b_, n_, m_: 20
+    try:
+        wall_ms, sol = sync_ms(lambda: port.solve_batch(costs))
+    finally:
+        batch._fr_fused_schedule = saved
+    tail = batch.LAST_TAIL_COUNT
+    assert 0 < tail <= b, tail
+    assert int((sol.nits == 20).sum()) >= tail
+    assert int(sol.num_unassigned.max()) == 0
+    for i in range(b):
+        r, c = scipy_lsa(costs[i])
+        assert sol.objective[i] == costs[i][r, c].sum(), i
+    emit({"phase": "native_tail", "batch": b, "n": n,
+          "first_chunk_rounds": 20, "tail_instances": tail,
+          "wall_ms": wall_ms, "scipy_equal": b,
+          "host_cpus": os.cpu_count()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -205,8 +422,12 @@ def main() -> int:
         return 2
     from scipy.optimize import linear_sum_assignment as scipy_lsa
 
-    from sparse_linear_assignment_tpu_torch import batch
-    from sparse_linear_assignment_tpu_torch.ops import _build, fr_kernel
+    from sparse_linear_assignment_tpu_torch import batch, cpu_reference
+    from sparse_linear_assignment_tpu_torch.ops import (
+        _build,
+        fr_big,
+        fr_kernel,
+    )
     from sparse_linear_assignment_tpu_torch.ops.fr_dense import fr_init
 
     # 1. the card and the build
@@ -215,17 +436,25 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     fr_kernel._kernel_lib()
+    fr_big._kernel_lib()
     build_s = time.perf_counter() - t0
-    regs = [ln.strip() for ln in _build.BUILD_LOG.get("fr_kernel", "")
-            .splitlines() if "registers" in ln or "spill" in ln]
+    # the native engine is built here too (g++, first use), so that no
+    # timed phase below pays for its build
+    t0 = time.perf_counter()
+    cpu_reference.get_lib()
+    native_build_s = time.perf_counter() - t0
+    regs = {name: [ln.strip() for ln in log.splitlines()
+                   if "registers" in ln or "spill" in ln]
+            for name, log in _build.BUILD_LOG.items()}
     emit({"phase": "card", "nvidia_smi": card,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s,
-          "ptxas": regs})
+          "native_build_s": native_build_s, "ptxas": regs})
 
-    # 2. kernel vs plain version on the card
+    # 2. kernels vs plain versions on the card
     max_err = phase_kernel_vs_plain(fr_kernel, fr_init)
+    phase_big_kernel_vs_plain(fr_big, fr_init)
 
     # 3. the north-star solve through the public entry point
     b, n, max_cost = 4096, 256, 1000
@@ -253,14 +482,15 @@ def main() -> int:
     # duals: the certificate makes every instance exactly optimal
     rounds0 = batch._fr_fused_schedule(b, n, 100_000)
     vt, work, st = batch._fr_dispatch(costs, True, scale, 1, rounds0)
-    st, _ = batch._fr_continue(vt, work, st, rounds0, 100_000)
+    st, _, _ = batch._fr_continue(vt, work, st, rounds0, 100_000)
     assert np.array_equal(st.p2o.cpu().numpy(), sol.person_to_object)
     certify_lattice(work, st)
     # the straggler continuation on the card: from a 20-round first chunk
     # (128-round chunks, then the gathered 128-instance bucket) to the
     # same answer as the deep chunk
     vt2, work2, st2 = batch._fr_dispatch(costs, True, scale, 1, 20)
-    st2, cont_rounds = batch._fr_continue(vt2, work2, st2, 20, 100_000)
+    st2, cont_rounds, _ = batch._fr_continue(vt2, work2, st2, 20,
+                                             100_000)
     assert torch.equal(st2.p2o, st.p2o) and torch.equal(st2.nits, st.nits)
     del vt2, work2, st2
     host = costs[:8].cpu().numpy().astype(np.float64)
@@ -352,7 +582,19 @@ def main() -> int:
           "window": 2, "wall_ms": stream_ms,
           "instances_per_s": 3 * b / (stream_ms / 1e3)})
 
-    # 7. the kernels line
+    del batches, res, costs
+
+    # 7. big dense singles on the multi-CTA kernel
+    bcosts, bdev, beps, big_launches, big_warm_ms = phase_big_single(
+        port, batch, fr_big, fr_kernel, fr_init, scipy_lsa)
+    phase_big_breakdown(batch, fr_init, bcosts, bdev, beps, big_warm_ms)
+    big = phase_big_kernel_time(batch, fr_big, fr_init, bdev, beps)
+    del bcosts, bdev
+
+    # 8. the native straggler tail of the host-costs branch
+    phase_native_tail(port, batch, scipy_lsa)
+
+    # 9. the kernels line
     emit({"kernels": [{
         "name": "fr_kernel",
         "route": "cuda",
@@ -365,6 +607,19 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "fr_big_kernel",
+        "route": "cuda",
+        "source": "sparse_linear_assignment_tpu_torch/csrc/fr_big_kernel.cu",
+        "replaces": "sparse_linear_assignment_tpu/ops/pallas_fr_big.py:606",
+        "launches": big_launches,
+        "max_abs_err": big["max_abs_err"],
+        "checked_vs_plain": True,
+        "ms": big["ms"],
+        "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"],
+        "bound_by": big["bound_by"],
         "library_ms": None,
     }]})
     emit({"ok": True, "device": {

@@ -1,16 +1,26 @@
 """Batched dense assignment through the forward-reverse (FR) auction.
 
-The port of the JAX package's fused FR path (``batch.py``): costs
-``[B, N, N]`` in, assignments and objectives out.  Square, tile-aligned
-float32 or int32-lattice instances up to 1024² run on the FR kernel
-(``ops/fr_kernel.py``): one deep-budget chunk, then on-device
-continuation chunks for stragglers.  Every other route of the JAX
-package raises ``NotImplementedError`` naming the ``ROADMAP.md`` item
-it waits for; nothing degrades quietly.
+The port of the JAX package's FR paths (``batch.py``): costs
+``[B, N, N]`` in, assignments and objectives out.  Two routes:
+
+- **fused**: square, tile-aligned float32 or int32-lattice instances up
+  to 1024² run on the batched FR kernel (``ops/fr_kernel.py``): one
+  deep-budget chunk, then continuation chunks for stragglers.  With
+  host costs, once at most 128 instances are undone they are finished
+  on the native C++ engine (``cpu_reference.py``); device-resident
+  costs keep them on the device;
+- **big single**: float32 square instances beyond ``_BIG_MIN_ELEMS``
+  with N % 128 == 0, in batches of at most 64, run one instance after
+  another on the multi-CTA kernel (``ops/fr_big.py``); an instance
+  still undone at ``max_iterations`` is finished on the native engine
+  when host costs are given.
+
+Every other route of the JAX package raises ``NotImplementedError``
+naming the ``ROADMAP.md`` item it waits for; nothing degrades quietly.
 
 Entry points take ``device=None``, meaning ``"cuda"``; with no CUDA
-device they raise.  ``device="cpu"`` runs the kernel's plain PyTorch
-version.  A ``costs_device`` tensor keeps its own device.
+device they raise.  ``device="cpu"`` runs the kernels' plain PyTorch
+versions.  A ``costs_device`` tensor keeps its own device.
 
 TPU-only measures of the JAX batch path that the port drops:
 
@@ -25,25 +35,46 @@ TPU-only measures of the JAX batch path that the port drops:
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
+import os
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .cpu_reference import get_lib
 from .device import resolve_device
+from .ops.fr_big import fr_big_chunk
 from .ops.fr_dense import fr_init
 from .ops.fr_kernel import fr_chunk
 from .solution import UNASSIGNED, convert_indices, o2p_from_p2o
 from .utils.trace import trace_host
 
-#: elements per instance up to which the fused FR path serves (beyond:
-#: the big-single streaming kernel, ROADMAP.md §1 item 5)
+#: elements per instance up to which the fused FR path serves
 _FUSED_MAX_ELEMS = 1024 * 1024
 
+#: elements above which a square f32 instance takes the big-single route
+#: (tests shrink it to drive the route at small sizes)
+_BIG_MIN_ELEMS = 1024 * 1024
+
+#: the largest batch the big-single route takes (one instance at a time)
+_BIG_MAX_BATCH = 64
+
 #: stragglers at or below this count continue as one gathered bucket
+#: (device-resident costs)
 _BUCKET = 128
+
+#: with host costs, the device rounds stop once at most this many
+#: instances are undone; the native engine finishes them
+_TAIL_CUT = 128
+
+#: instances still undone when the last fused-route solve stopped its
+#: device rounds; with host costs, within ``max_iterations``, the native
+#: engine finished them
+LAST_TAIL_COUNT = 0
 
 
 @dataclasses.dataclass
@@ -178,25 +209,101 @@ def _fr_continue_bucket(values_t, work, states, bucket: int, budget: int):
     return type(states)(*fields)
 
 
-def _fr_continue(values_t, work, states, rounds: int, max_iterations: int):
-    """Keep undone instances running on the device until all are done or
-    ``max_iterations`` rounds were budgeted: 512-round bucket stages once
-    at most ``_BUCKET`` remain, 128-round chunks of the whole batch
-    before that (the JAX device-resident branch).  Returns ``(states,
-    rounds)``."""
+def _fr_continue(values_t, work, states, rounds: int, max_iterations: int,
+                 tail_cut: int = 0):
+    """Keep undone instances running on the device until at most
+    ``tail_cut`` are undone or ``max_iterations`` rounds were budgeted:
+    128-round chunks of the whole batch, and with no tail to hand them
+    to (``tail_cut == 0``, device-resident costs) 512-round bucket
+    stages once at most ``_BUCKET`` remain (the JAX schedule).  Returns
+    ``(states, rounds, undone)``."""
     while True:
         undone = int((~states.done).sum())  # the blocking readback
         trace_host("fr fused: rounds={} undone={}/{}", rounds, undone,
                    values_t.shape[0])
-        if undone == 0 or rounds >= max_iterations:
-            return states, rounds
-        if undone <= _BUCKET:
+        if undone <= tail_cut or rounds >= max_iterations:
+            return states, rounds, undone
+        if tail_cut == 0 and undone <= _BUCKET:
             states = _fr_continue_bucket(values_t, work, states, _BUCKET,
                                          512)
             rounds += 512
         else:
             states, _ = fr_chunk(values_t, states, 128, values=work)
             rounds += 128
+
+
+def _cpu_tail_forward(work_row, target_eps, max_iterations):
+    """Finish one dense instance sequentially on the native C++ engine
+    (reference ε-scaling forward semantics).  ``work_row [N, M]`` is the
+    sign-adjusted max-profit value matrix.  Returns (p2o, o2p, nits)."""
+    lib = get_lib()
+    n, m = work_row.shape
+    starts = np.arange(n + 1, dtype=np.int64) * m
+    cols = np.tile(np.arange(m, dtype=np.int32), n)
+    vals = np.ascontiguousarray(work_row.reshape(-1), dtype=np.float64)
+    p2o = np.empty(n, dtype=np.int32)
+    o2p = np.empty(m, dtype=np.int32)
+    prices = np.empty(m, dtype=np.float64)
+    nits = ctypes.c_int64(0)
+    nreductions = ctypes.c_int64(0)
+    optimal = ctypes.c_int32(0)
+    final_eps = ctypes.c_double(0.0)
+    rc = lib.slap_forward_solve(
+        n, m, starts, cols, vals, float(target_eps), -1.0,
+        int(max_iterations), p2o, o2p, prices,
+        ctypes.byref(nits), ctypes.byref(nreductions),
+        ctypes.byref(optimal), ctypes.byref(final_eps),
+    )
+    if rc != 0:
+        raise RuntimeError(f"native forward solve failed (rc {rc})")
+    p2o = np.where(p2o < 0, UNASSIGNED, p2o).astype(np.int32)
+    o2p = np.where(o2p < 0, UNASSIGNED, o2p).astype(np.int32)
+    return p2o, o2p, int(nits.value)
+
+
+def _native_tail(costs, maximize: bool, eps: float, max_iterations: int,
+                 rows, p2o) -> None:
+    """Finish instances ``rows`` of the host ``costs`` on the native
+    engine, one thread per instance up to the host's cores (the engine
+    runs outside the GIL), writing their matchings into ``p2o``.  The
+    sign is applied to the caller's float64 costs, not to the staged
+    values."""
+    trace_host("fr: native tail finishing {} instances", len(rows))
+
+    def finish(i):
+        row = np.asarray(costs[i], dtype=np.float64)
+        return i, _cpu_tail_forward(row if maximize else -row, eps,
+                                    max_iterations)[0]
+
+    workers = max(1, min(os.cpu_count() or 1, len(rows)))
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        for i, p2o_i in ex.map(finish, rows):
+            p2o[i] = p2o_i
+
+
+def _fr_big_solve(values_t, work, eps_val, max_iterations: int):
+    """The big-single route: one instance after another, each from
+    ``fr_init`` in chunks of ``min(max_iterations, max(512, 2n))``
+    rounds until it is done or has run ``max_iterations`` rounds.
+    Returns ``(p2o [B, N], nits [B], done [B])`` on the device."""
+    b, _, n = values_t.shape
+    budget = int(min(max_iterations, max(512, 2 * n)))
+    p2o = torch.empty((b, n), dtype=torch.int32, device=values_t.device)
+    nits = torch.empty(b, dtype=torch.int32, device=values_t.device)
+    done = torch.empty(b, dtype=torch.bool, device=values_t.device)
+    for bi in range(b):
+        vt, v = values_t[bi:bi + 1], work[bi:bi + 1]
+        st = fr_init(vt, eps_val)
+        while True:
+            st, _ = fr_big_chunk(vt, st, budget, values=v)
+            rounds, fin = torch.stack(
+                [st.nits[0], st.done[0].to(torch.int32)]).tolist()
+            trace_host("fr big single {}: rounds={} done={}", bi, rounds,
+                       bool(fin))
+            if fin or rounds >= max_iterations:
+                break
+        p2o[bi], nits[bi], done[bi] = st.p2o[0], st.nits[0], st.done[0]
+    return p2o, nits, done
 
 
 def _fr_dispatch(costs_dev, negate, int_scale, eps_val, rounds):
@@ -224,19 +331,28 @@ def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, dtype)).dtype
 
 
-def _check_fused_route(n, m, dtype, int_scale) -> None:
-    """Raise for every shape and type the JAX package sends elsewhere
-    than its fused FR kernel path."""
+def _route(b, n, m, dtype, int_scale) -> str:
+    """``"big"`` or ``"fused"``, the JAX package's routing; raise for
+    every shape and type it sends to an engine not ported yet."""
     if n != m:
         raise NotImplementedError(
             "rectangular instances (N < M) run the forward engine, which "
             "is not ported yet (ROADMAP.md §1 item 7)"
         )
+    if (
+        int_scale is None
+        and np.dtype(dtype) == np.float32
+        and b <= _BIG_MAX_BATCH
+        and n % 128 == 0
+        and n * m > _BIG_MIN_ELEMS
+    ):
+        return "big"
     if n * m > _FUSED_MAX_ELEMS:
         raise NotImplementedError(
-            f"{n}x{m} instances exceed the fused path's 1024² limit; the "
-            "big-single streaming kernel is not ported yet (ROADMAP.md §1 "
-            "item 5)"
+            f"{b} x {n}x{m} {np.dtype(dtype).name} instances run the "
+            "XLA-rounds FR path (the big-single route takes float32, "
+            f"N % 128 == 0 and batches up to {_BIG_MAX_BATCH}), which is "
+            "not ported yet (ROADMAP.md §1 item 4)"
         )
     if int_scale is None and np.dtype(dtype) != np.float32:
         raise NotImplementedError(
@@ -249,6 +365,7 @@ def _check_fused_route(n, m, dtype, int_scale) -> None:
             "== 0) and run the XLA-rounds FR path, which is not ported "
             "yet (ROADMAP.md §1 item 4)"
         )
+    return "fused"
 
 
 def solve_batch(
@@ -270,10 +387,15 @@ def solve_batch(
     combined forward-reverse auction started at the target ε (default
     ``1/N``), where a full assignment is the ε-CS certificate.
 
+    Instances up to 1024² run batched on the fused route; float32
+    instances beyond it (N % 128 == 0, ``B <= 64``) run one after
+    another on the big-single route (see the module docstring).
+
     ``costs_device``: a tensor with the same contents as ``costs`` that
     already lies on a device.  **Device-resident mode**: pass
     ``costs=None`` with only ``costs_device``; the objective is then
-    evaluated on that device.
+    evaluated on that device, and stragglers stay on the device instead
+    of going to the native engine.
 
     **Integer-auction mode** (``integer``): integer-valued costs run the
     whole auction on the scaled-int32 lattice (``cost * D``, ε = 1 with
@@ -284,6 +406,7 @@ def solve_batch(
 
     ``start_eps_divisor`` belongs to the forward engine and is unused
     on the FR path."""
+    global LAST_TAIL_COUNT
     del start_eps_divisor
     if solver == "auto":
         solver = "fr"
@@ -307,7 +430,7 @@ def solve_batch(
     if costs is None and n != m:
         raise ValueError("device-resident mode requires square instances")
     int_scale = _integer_scale(costs, eps, n, m, integer, max_cost)
-    _check_fused_route(n, m, dtype, int_scale)
+    route = _route(b, n, m, dtype, int_scale)
 
     tdtype = _torch_dtype(dtype)
     if costs_device is not None:
@@ -330,17 +453,35 @@ def solve_batch(
         eps_val = float(eps) if eps is not None else 1.0 / n
         final_eps = float(np.float32(eps_val))
 
-    rounds = _fr_fused_schedule(b, n, max_iterations)
-    values_t, work, states = _fr_dispatch(
-        costs_dev, not maximize, int_scale, eps_val, rounds
-    )
-    states, rounds = _fr_continue(
-        values_t, work, states, rounds, max_iterations
-    )
-    p2o = states.p2o.cpu().numpy()
+    if route == "big":
+        values_t, work = _stage(costs_dev, not maximize, None)
+        p2o_dev, nits_dev, done = _fr_big_solve(
+            values_t, work, eps_val, max_iterations
+        )
+        tail = ~done.cpu().numpy()
+    else:
+        rounds = _fr_fused_schedule(b, n, max_iterations)
+        values_t, work, states = _fr_dispatch(
+            costs_dev, not maximize, int_scale, eps_val, rounds
+        )
+        states, rounds, LAST_TAIL_COUNT = _fr_continue(
+            values_t, work, states, rounds, max_iterations,
+            tail_cut=_TAIL_CUT if costs is not None else 0,
+        )
+        p2o_dev, nits_dev = states.p2o, states.nits
+        # the fused route finishes stragglers natively only within the
+        # round budget, and reports the device rounds spent as their nits
+        tail = ~states.done.cpu().numpy() & (rounds < max_iterations)
+    p2o = p2o_dev.cpu().numpy()
+    nits = nits_dev.cpu().numpy()
+    if costs is not None and tail.any():
+        _native_tail(costs, maximize, final_eps, max_iterations,
+                     np.nonzero(tail)[0], p2o)
+        if route == "fused":
+            nits[tail] = rounds
     assigned = p2o != UNASSIGNED
     if costs is None:
-        objective = _device_objective(work, states.p2o, not maximize)
+        objective = _device_objective(work, p2o_dev, not maximize)
         objective = objective.cpu().numpy()
         if int_scale is not None:
             # the summands are original integers times the scale: exact
@@ -357,7 +498,7 @@ def solve_batch(
         num_unassigned=(~assigned).sum(axis=1).astype(np.int32),
         objective=objective,
         eps=np.full(b, final_eps),
-        nits=states.nits.cpu().numpy(),
+        nits=nits,
     )
 
 
@@ -440,7 +581,7 @@ def solve_batch_stream(
     def finish(stream, staged):
         values_t, work, states = staged
         with on(stream):
-            states, _ = _fr_continue(
+            states, _, _ = _fr_continue(
                 values_t, work, states, base_rounds, max_iterations
             )
             p2o = states.p2o.cpu().numpy()

@@ -38,84 +38,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "fr_common.cuh"
 
-constexpr int32_t kUnassigned = 0x7fffffff;
-constexpr int32_t kIntSentinel = -(1 << 30);
-constexpr int32_t kStallK0 = 8;
-constexpr unsigned kFull = 0xffffffffu;
+namespace {
 
 // meta row of an instance: nits, forward_mode, done, since_inc, stall_k
 constexpr int kMeta = 5;
-
-template <typename T>
-struct Traits;
-
-template <>
-struct Traits<float> {
-  static __device__ __forceinline__ float neg_inf() {
-    return __int_as_float(0xff800000);
-  }
-  // order-preserving unsigned image of a float (no NaNs occur)
-  static __device__ __forceinline__ uint32_t order(float x) {
-    uint32_t u = __float_as_uint(x);
-    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  }
-  static __device__ __forceinline__ float unorder(uint32_t o) {
-    uint32_t u = (o & 0x80000000u) ? (o & 0x7fffffffu) : ~o;
-    return __uint_as_float(u);
-  }
-};
-
-template <>
-struct Traits<int32_t> {
-  static __device__ __forceinline__ int32_t neg_inf() { return kIntSentinel; }
-  static __device__ __forceinline__ uint32_t order(int32_t x) {
-    return static_cast<uint32_t>(x) ^ 0x80000000u;
-  }
-  static __device__ __forceinline__ int32_t unorder(uint32_t o) {
-    return static_cast<int32_t>(o ^ 0x80000000u);
-  }
-};
-
-// Warp-wide top-2 of row[r] - rowp[r] over r < S.  Every lane returns
-// best, argbest (smallest index among the maxima) and second (the max over
-// every position except argbest), with has_second false when S == 1.
-__device__ __forceinline__ void top2(const float* __restrict__ row,
-                                     const float* rowp, int S, int sh,
-                                     int lane, float& best, int& arg,
-                                     float& second, bool& has_second) {
-  (void)sh;
-  const float ninf = Traits<float>::neg_inf();
-  float b = ninf, s = ninf;
-  int j = kUnassigned;
-  for (int r = lane; r < S; r += 32) {
-    const float v = row[r] - rowp[r];
-    if (v > b) {
-      s = fmaxf(s, b);
-      b = v;
-      j = r;
-    } else {
-      s = fmaxf(s, v);
-    }
-  }
-  // the exact merge of _top2_rows_f32: ties go to the smaller index, the
-  // other tied position's value lands in second via min(b1, b2)
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float b2 = __shfl_xor_sync(kFull, b, off);
-    const int j2 = __shfl_xor_sync(kFull, j, off);
-    const float s2 = __shfl_xor_sync(kFull, s, off);
-    const bool take1 = (b > b2) || (b == b2 && j <= j2);
-    s = fmaxf(fminf(b, b2), fmaxf(s, s2));
-    b = take1 ? b : b2;
-    j = take1 ? j : j2;
-  }
-  best = b;
-  arg = j;
-  second = s;
-  has_second = s != ninf;
-}
 
 // Integer lattice: packed keys (profit << sh) | (mask - r), unique per
 // position, so a plain max gives the value and its smallest index at once
@@ -252,10 +180,7 @@ fr_rounds_kernel(const T* __restrict__ vals, const T* __restrict__ vals_t,
           const T inc = best - floor + eps_v;
           s_bestj[c] = arg;
           s_floor[c] = floor;
-          const unsigned long long key =
-              (static_cast<unsigned long long>(Traits<T>::order(inc)) << 32) |
-              static_cast<unsigned long long>(~static_cast<uint32_t>(c));
-          atomicMax(&keys[arg], key);
+          atomicMax(&keys[arg], bid_key(inc, c));
         } else {
           s_bestj[c] = -1;
         }
@@ -269,7 +194,7 @@ fr_rounds_kernel(const T* __restrict__ vals, const T* __restrict__ vals_t,
       if (key) {
         keys[r] = 0ull;
         rowp[r] = rowp[r] + Traits<T>::unorder(static_cast<uint32_t>(key >> 32));
-        rowo2p[r] = static_cast<int32_t>(~static_cast<uint32_t>(key));
+        rowo2p[r] = key_bidder(key);
         s_haswin[r] = 1;
       } else {
         s_haswin[r] = 0;

@@ -68,7 +68,9 @@ def _kernel_lib() -> ctypes.CDLL:
     return _lib
 
 
-def _check(values_t: torch.Tensor, states: FRState) -> None:
+def check_state(values_t: torch.Tensor, states: FRState) -> None:
+    """Raise unless ``values_t`` is a square float32 or int32 ``[B, M, N]``
+    batch and ``states`` a batched state of its shape and device."""
     if values_t.dim() != 3:
         raise ValueError("values_t must be [B, M, N]")
     b, m, n = values_t.shape
@@ -125,7 +127,7 @@ def fr_chunk(values_t, states: FRState, rounds: int, values=None,
     it (built here otherwise).  ``eps`` and ``nreductions`` pass
     through; ``optimal_found |= done``.  CPU tensors run
     :func:`fr_chunk_reference`; CUDA tensors launch the kernel."""
-    _check(values_t, states)
+    check_state(values_t, states)
     if values_t.device.type == "cpu":
         return fr_chunk_reference(values_t, states, rounds, bid_rows)
     if values_t.device.type != "cuda":
@@ -145,22 +147,8 @@ def _fr_chunk_cuda(values_t, states, rounds, values, bid_rows):
     v = (vt.transpose(1, 2) if values is None else values).contiguous()
     if v.shape != vt.shape or v.dtype != dtype or v.device != vt.device:
         raise ValueError("values must be values_t's transpose")
-    # the kernel updates these copies in place; the inputs stay intact
-    prices = states.prices.to(dtype).contiguous().clone()
-    profits = states.profits.to(dtype).contiguous().clone()
-    p2o = states.p2o.to(torch.int32).contiguous().clone()
-    o2p = states.o2p.to(torch.int32).contiguous().clone()
-    eps = states.eps.to(dtype).contiguous()
-    meta = torch.stack(
-        [states.nits, states.forward_mode, states.done, states.since_inc,
-         states.stall_k], dim=1,
-    ).to(torch.int32).contiguous()
-    if bid_rows is not None and (
-        bid_rows.dtype != torch.int64 or tuple(bid_rows.shape) != (b,)
-        or bid_rows.device != vt.device or not bid_rows.is_contiguous()
-    ):
-        raise ValueError("bid_rows must be a contiguous int64 [B] tensor "
-                         "on the values' device")
+    prices, profits, p2o, o2p, eps, meta = kernel_state(states, dtype)
+    check_bid_rows(bid_rows, b, vt.device)
     lib = _kernel_lib()
     with torch.cuda.device(vt.device):
         stream = torch.cuda.current_stream(vt.device).cuda_stream
@@ -175,8 +163,34 @@ def _fr_chunk_cuda(values_t, states, rounds, values, bid_rows):
         msg = lib.slap_cuda_error_string(rc).decode()
         raise RuntimeError(f"FR kernel launch failed: {msg} ({rc})")
     LAUNCHES += 1
+    new = state_from_kernel(states, prices, profits, p2o, o2p, meta)
+    return new, new.done.all()
+
+
+def kernel_state(states: FRState, dtype):
+    """The kernels' in-out buffers of a batched state: contiguous copies
+    of prices, profits, p2o and o2p that a kernel updates in place (the
+    inputs stay intact), eps, and the meta rows ``[B, 5]`` int32 (nits,
+    forward_mode, done, since_inc, stall_k)."""
+    prices = states.prices.to(dtype).contiguous().clone()
+    profits = states.profits.to(dtype).contiguous().clone()
+    p2o = states.p2o.to(torch.int32).contiguous().clone()
+    o2p = states.o2p.to(torch.int32).contiguous().clone()
+    eps = states.eps.to(dtype).contiguous()
+    meta = torch.stack(
+        [states.nits, states.forward_mode, states.done, states.since_inc,
+         states.stall_k], dim=1,
+    ).to(torch.int32).contiguous()
+    return prices, profits, p2o, o2p, eps, meta
+
+
+def state_from_kernel(states: FRState, prices, profits, p2o, o2p,
+                      meta) -> FRState:
+    """The state after a launch on :func:`kernel_state`'s buffers;
+    ``eps`` and ``nreductions`` pass through, ``optimal_found |=
+    done``."""
     done = meta[:, 2] != 0
-    new = FRState(
+    return FRState(
         prices=prices,
         profits=profits,
         p2o=p2o,
@@ -190,4 +204,14 @@ def _fr_chunk_cuda(values_t, states, rounds, values, bid_rows):
         optimal_found=states.optimal_found | done,
         done=done,
     )
-    return new, done.all()
+
+
+def check_bid_rows(bid_rows, b: int, device) -> None:
+    """Raise unless ``bid_rows`` is None or a contiguous int64 ``[B]``
+    tensor on ``device``."""
+    if bid_rows is not None and (
+        bid_rows.dtype != torch.int64 or tuple(bid_rows.shape) != (b,)
+        or bid_rows.device != device or not bid_rows.is_contiguous()
+    ):
+        raise ValueError("bid_rows must be a contiguous int64 [B] tensor "
+                         "on the values' device")

@@ -76,10 +76,12 @@ def test_host_f32_costs_match_jax(jax_results):
 
 
 def test_straggler_continuation_matches_jax(jax_results, monkeypatch):
-    """A first chunk of 10 rounds leaves every instance undone, so the
-    128-round whole-batch chunks and then (with the bucket shrunk to 2)
-    the gathered bucket stage both run; a finished instance is frozen,
-    so the answer must equal the JAX deep-budget result."""
+    """Device-resident costs: a first chunk of 10 rounds leaves every
+    instance undone, so the 128-round whole-batch chunks and then (with
+    the bucket shrunk to 2) the gathered bucket stage both run on the
+    device; a finished instance is frozen, so the answer must equal the
+    JAX deep-budget result.  (Host costs go to the native tail instead:
+    ``tests/test_torch_native.py``.)"""
     from sparse_linear_assignment_tpu_torch import batch
 
     monkeypatch.setattr(batch, "_fr_fused_schedule", lambda b, n, m: 10)
@@ -90,10 +92,14 @@ def test_straggler_continuation_matches_jax(jax_results, monkeypatch):
         batch, "_fr_continue_bucket",
         lambda *a: calls.append(a[3]) or real_bucket(*a),
     )
-    costs, want = jax_results["host"]
-    got = port.solve_batch(costs, device="cpu")
+    costs, want = jax_results["device"]
+    got = port.solve_batch(
+        None, costs_device=torch.from_numpy(costs.astype(np.float32)),
+        integer=True, max_cost=100,
+    )
     _assert_same(got, want)
     assert calls and calls[0] == 2
+    assert batch.LAST_TAIL_COUNT == 0
 
 
 def test_trace_and_profile(tmp_path, capsys):
@@ -217,8 +223,9 @@ def test_value_error_probes():
                                     device="cpu"), "item 7"),
         (lambda c: port.linear_sum_assignment(np.zeros((128, 256)),
                                               device="cpu"), "item 7"),
-        (lambda c: port.solve_batch(
-            None, costs_device=torch.empty((1, 1152, 1152))), "item 5"),
+        (lambda c: port.solve_batch(np.zeros((1, 1152, 1152)),
+                                    dtype=np.float64, device="cpu"),
+         "item 4"),
         (lambda c: port.solve_batch(c + 0.5, dtype=np.float64,
                                     device="cpu"), "item 4"),
         (lambda c: port.solve_batch(c[:, :5, :5], device="cpu"),

@@ -25,6 +25,8 @@ def test_import_loads_no_jax():
         "import sys\n"
         "import sparse_linear_assignment_tpu_torch as p\n"
         "import sparse_linear_assignment_tpu_torch.ops.fr_kernel\n"
+        "import sparse_linear_assignment_tpu_torch.ops.fr_big\n"
+        "import sparse_linear_assignment_tpu_torch.cpu_reference\n"
         "import sparse_linear_assignment_tpu_torch.utils.trace\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib') or "
         "m.startswith(('jax.', 'jaxlib.')) or m == "
