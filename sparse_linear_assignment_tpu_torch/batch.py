@@ -281,19 +281,21 @@ def _native_tail(costs, maximize: bool, eps: float, max_iterations: int,
             p2o[i] = p2o_i
 
 
-def _fr_big_solve(values_t, work, eps_val, max_iterations: int):
-    """The big-single route: one instance after another, each from
-    ``fr_init`` in chunks of ``min(max_iterations, max(512, 2n))``
-    rounds until it is done or has run ``max_iterations`` rounds.
-    Returns ``(p2o [B, N], nits [B], done [B])`` on the device."""
-    b, _, n = values_t.shape
+def _fr_big_solve(costs_dev, negate: bool, eps_val, max_iterations: int):
+    """The big-single route: one instance after another, each staged on
+    its own (so the route holds the batch plus one instance's two
+    layouts) and run from ``fr_init`` in chunks of ``min(max_iterations,
+    max(512, 2n))`` rounds until it is done or has run
+    ``max_iterations`` rounds.  Returns ``(p2o [B, N], nits [B], done
+    [B])`` on the device."""
+    b, _, n = costs_dev.shape
     budget = int(min(max_iterations, max(512, 2 * n)))
-    p2o = torch.empty((b, n), dtype=torch.int32, device=values_t.device)
-    nits = torch.empty(b, dtype=torch.int32, device=values_t.device)
-    done = torch.empty(b, dtype=torch.bool, device=values_t.device)
+    p2o = torch.empty((b, n), dtype=torch.int32, device=costs_dev.device)
+    nits = torch.empty(b, dtype=torch.int32, device=costs_dev.device)
+    done = torch.empty(b, dtype=torch.bool, device=costs_dev.device)
     for bi in range(b):
-        vt, v = values_t[bi:bi + 1], work[bi:bi + 1]
-        st = fr_init(vt, eps_val)
+        vt, v = _stage(costs_dev[bi:bi + 1], negate, None)
+        st = fr_init(vt, eps_val, values=v)
         while True:
             st, _ = fr_big_chunk(vt, st, budget, values=v)
             rounds, fin = torch.stack(
@@ -303,6 +305,7 @@ def _fr_big_solve(values_t, work, eps_val, max_iterations: int):
             if fin or rounds >= max_iterations:
                 break
         p2o[bi], nits[bi], done[bi] = st.p2o[0], st.nits[0], st.done[0]
+        del vt, v, st  # free this instance's layouts before the next
     return p2o, nits, done
 
 
@@ -454,9 +457,8 @@ def solve_batch(
         final_eps = float(np.float32(eps_val))
 
     if route == "big":
-        values_t, work = _stage(costs_dev, not maximize, None)
         p2o_dev, nits_dev, done = _fr_big_solve(
-            values_t, work, eps_val, max_iterations
+            costs_dev, not maximize, eps_val, max_iterations
         )
         tail = ~done.cpu().numpy()
     else:
@@ -480,12 +482,14 @@ def solve_batch(
         if route == "fused":
             nits[tail] = rounds
     assigned = p2o != UNASSIGNED
-    if costs is None:
-        objective = _device_objective(work, p2o_dev, not maximize)
+    if costs is None and int_scale is None:
+        # the costs themselves: the staged values are only their negation
+        objective = _device_objective(costs_dev, p2o_dev, False)
         objective = objective.cpu().numpy()
-        if int_scale is not None:
-            # the summands are original integers times the scale: exact
-            objective = objective / int_scale
+    elif costs is None:
+        objective = _device_objective(work, p2o_dev, not maximize)
+        # the summands are original integers times the scale: exact
+        objective = objective.cpu().numpy() / int_scale
     else:
         safe = np.where(assigned, p2o, 0)
         picked = np.take_along_axis(

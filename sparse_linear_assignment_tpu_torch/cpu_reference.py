@@ -4,9 +4,10 @@
 engine; the port keeps its own copy and never reads the other one.  The
 shared library is compiled on demand with ``g++`` into the port's
 ``_build/`` directory (never next to the source), keyed on a hash of the
-source and the flags.  It finishes straggler instances of the dense FR
-path on the host (``batch._cpu_tail_forward``) and serves the chain
-tail of dense singles (:func:`fr_dense_finish_cpu`).
+source and the flags.  The port's routes reach it only through
+``batch._cpu_tail_forward``, which finishes straggler instances of the
+dense FR path on the host.  :func:`fr_dense_finish_cpu` is a standalone
+oracle that only the tests use.
 
 The engine's Khosla and forward solvers on ``AuctionSolver`` instances
 (``khosla_solve_cpu``, ``forward_solve_cpu`` in the JAX package) wait

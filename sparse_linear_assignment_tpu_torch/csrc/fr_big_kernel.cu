@@ -64,6 +64,10 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
+// CTAs per SM of the cooperative grid (capped by the occupancy limit):
+// fewer CTAs make each grid barrier cheaper, and 16 warps per SM still
+// spread the early rounds' thousands of bidders over the card; not tuned
+constexpr int kBlocksPerSm = 2;
 
 // control words: bidder counts of the two lists, per parity, the
 // cardinality delta per parity, the cardinality at entry
@@ -269,9 +273,8 @@ __global__ void __launch_bounds__(kThreads) fr_big_rounds_kernel(Args a) {
 // One cooperative launch of up to `rounds` rounds.  Pointers are device
 // pointers of contiguous tensors; `scratch` is an int32 buffer of
 // fr_big_scratch_words(S) words, zero at entry; bid_rows may be null.
-// blocks_per_sm caps the CTAs per SM below the occupancy limit.  Returns
-// the cudaError_t of the launch (0 on success): a grid that cannot be
-// co-resident is refused, never shrunk to a wrong size.
+// Returns the cudaError_t of the launch (0 on success): a grid that cannot
+// be co-resident is refused, never shrunk to a wrong size.
 extern "C" long long slap_fr_big_scratch_words(int S) {
   return 2LL * S + 7LL * S + kCtrl;
 }
@@ -280,8 +283,7 @@ extern "C" int slap_fr_big_rounds(const void* vals, const void* vals_t,
                                   void* prices, void* profits, void* p2o,
                                   void* o2p, const void* eps, void* meta,
                                   void* bid_rows, void* scratch, int S,
-                                  int rounds, int blocks_per_sm,
-                                  void* stream) {
+                                  int rounds, void* stream) {
   if (S <= 0) return 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -294,7 +296,7 @@ extern "C" int slap_fr_big_rounds(const void* vals, const void* vals_t,
       &per_sm, fr_big_rounds_kernel, kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  if (blocks_per_sm > 0 && blocks_per_sm < per_sm) per_sm = blocks_per_sm;
+  if (per_sm > kBlocksPerSm) per_sm = kBlocksPerSm;
   // no more warps than an entry-round bidder list can use (one per row)
   const int warps_per_block = kThreads / 32;
   const int useful = (S + warps_per_block - 1) / warps_per_block;

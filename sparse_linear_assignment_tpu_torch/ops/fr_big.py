@@ -49,12 +49,6 @@ from .fr_kernel import (
 #: kernel launches made by :func:`fr_big_chunk` in this process
 LAUNCHES = 0
 
-#: CTAs per SM of the cooperative grid (capped by the occupancy limit):
-#: fewer CTAs make each grid barrier cheaper, and 16 warps per SM (2,112
-#: on an H100) still spread the early rounds' thousands of bidders over
-#: the whole card; not tuned
-BLOCKS_PER_SM = 2
-
 _lib = None
 
 
@@ -64,8 +58,7 @@ def _kernel_lib() -> ctypes.CDLL:
         lib = _build.load("fr_big_kernel")
         p = ctypes.c_void_p
         lib.slap_fr_big_rounds.argtypes = [
-            p, p, p, p, p, p, p, p, p, p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
+            p, p, p, p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, p,
         ]
         lib.slap_fr_big_rounds.restype = ctypes.c_int
         lib.slap_fr_big_scratch_words.argtypes = [ctypes.c_int]
@@ -130,7 +123,7 @@ def _fr_big_chunk_cuda(values_t, state, rounds, values, bid_rows):
             profits.data_ptr(), p2o.data_ptr(), o2p.data_ptr(),
             eps.data_ptr(), meta.data_ptr(),
             bid_rows.data_ptr() if bid_rows is not None else None,
-            scratch.data_ptr(), n, int(rounds), BLOCKS_PER_SM, stream,
+            scratch.data_ptr(), n, int(rounds), stream,
         )
     if rc != 0:
         msg = lib.slap_cuda_error_string(rc).decode()

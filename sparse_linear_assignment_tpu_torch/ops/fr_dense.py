@@ -75,10 +75,13 @@ def _neg_inf(dtype, device) -> torch.Tensor:
     return torch.tensor(INT_SENTINEL, dtype=dtype, device=device)
 
 
-def fr_init(values_t: torch.Tensor, eps) -> FRState:
+def fr_init(values_t: torch.Tensor, eps, values=None) -> FRState:
     """Initial batched state: zero prices, pi = each person's max value
     (the exact profit at zero prices, so the joint invariant holds).
-    ``eps`` is a scalar or a ``[B]`` tensor."""
+    ``eps`` is a scalar or a ``[B]`` tensor.  ``values [B, N, M]``, the
+    person-major layout, if given, supplies the maxima along its
+    contiguous rows: the same numbers, without the device workspace that
+    a reduction across ``values_t``'s rows takes for one big instance."""
     b, m, n = values_t.shape
     dtype, dev = values_t.dtype, values_t.device
 
@@ -87,7 +90,8 @@ def fr_init(values_t: torch.Tensor, eps) -> FRState:
 
     return FRState(
         prices=torch.zeros((b, m), dtype=dtype, device=dev),
-        profits=values_t.amax(dim=1),
+        profits=(values_t.amax(dim=1) if values is None
+                 else values.amax(dim=2)),
         p2o=torch.full((b, n), _INT_MAX, dtype=torch.int32, device=dev),
         o2p=torch.full((b, m), _INT_MAX, dtype=torch.int32, device=dev),
         eps=torch.as_tensor(eps, dtype=dtype, device=dev).expand(b).clone(),

@@ -146,6 +146,11 @@ def test_big_single_route_matches_jax(big_costs, jax_big, monkeypatch,
     real = batch.fr_big_chunk
     monkeypatch.setattr(batch, "fr_big_chunk",
                         lambda *a, **k: launches.append(1) or real(*a, **k))
+    # the route stages one instance at a time, never the whole batch
+    staged = []
+    real_stage = batch._stage
+    monkeypatch.setattr(batch, "_stage", lambda c, *a: staged.append(
+        c.shape[0]) or real_stage(c, *a))
     kw = dict(maximize=maximize, eps=1.0 / (N + 1), integer=False)
     if residency == "host":
         got = port.solve_batch(big_costs, device="cpu", **kw)
@@ -155,6 +160,7 @@ def test_big_single_route_matches_jax(big_costs, jax_big, monkeypatch,
                 big_costs.astype(np.float32)), **kw)
     want = jax_big[maximize, residency]
     assert launches, "the big-single route was not taken"
+    assert staged == [1, 1]
     np.testing.assert_array_equal(got.person_to_object,
                                   want.person_to_object)
     np.testing.assert_array_equal(got.object_to_person,

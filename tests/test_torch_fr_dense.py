@@ -83,6 +83,9 @@ def _run_both(values_t, start_eps, target_eps, skip_certificate,
     tv = torch.from_numpy(values_t)
     ts = tfr.weights_from_jax_state(_np_fields(js), device="cpu")
     _assert_same(js, tfr.fr_init(tv, torch.tensor(start_eps)), "at init")
+    _assert_same(js, tfr.fr_init(tv, torch.tensor(start_eps),
+                                 values=tv.transpose(1, 2).contiguous()),
+                 "at init from the person-major layout")
     for r in range(rounds):
         js = jround(jv, js)
         ts = tfr.fr_round(
