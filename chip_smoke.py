@@ -16,7 +16,13 @@ drives the port's paths through ``solve_batch``:
   (scipy's objective) and one 8192x8192 instance made on the card (a
   float64 price certificate);
 - the native straggler tail of the host-costs branch (scipy's
-  objectives).
+  objectives);
+- the batched sparse mode on the Khosla kernel: 5 batches of 4096
+  instances of 128 persons x 512 objects with 8 arcs per person, made
+  and staged on the card (``stage_batch_sparse_device``) and streamed
+  (``solve_batch_sparse_stream``), scipy's objective on a sample; the
+  host-staged path with column compaction (``solve_batch_sparse``) on
+  1024 x (256 x 2048, k = 8); a batch with infeasible instances.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -440,7 +446,369 @@ def phase_native_tail(port, batch, scipy_lsa):
           "host_cpus": os.cpu_count()})
 
 
+# ----------------------------------------------------------------------
+# batched sparse mode (the Khosla kernel)
+# ----------------------------------------------------------------------
+KSP_FIELDS = ("prices", "p2o", "o2p", "dropped", "nits")
+
+
+def device_arcs(gen, b, n, m, k, lo, hi):
+    """k distinct columns per person and integer values in [lo, hi) as
+    float32, made on the card from a seeded generator."""
+    scores = torch.rand((b, n, m), generator=gen, device="cuda")
+    cols = scores.topk(k, dim=2).indices.to(torch.int32)
+    vals = torch.randint(lo, hi, (b, n, k), generator=gen, device="cuda",
+                         dtype=torch.int32).float()
+    return cols, vals
+
+
+def sparse_scipy_objective(scipy_lsa, cols, vals, m):
+    """scipy's optimum of one k-sparse instance on the 1e9-filled dense
+    matrix (integer values: exact)."""
+    n = cols.shape[0]
+    full = np.full((n, m), 1e9)
+    for i in range(n):
+        real = cols[i] >= 0
+        full[i, cols[i][real]] = vals[i][real]
+    r, c = scipy_lsa(full)
+    return full[r, c].sum()
+
+
+def ksp_states_equal(a, b):
+    return [k for k in KSP_FIELDS
+            if not torch.equal(getattr(a, k), getattr(b, k))]
+
+
+def ksp_active(s):
+    return (s.p2o == 2**31 - 1) & ~s.dropped
+
+
+def phase_ksp_kernel_vs_plain(port, batch, ksp):
+    """The Khosla kernel against its plain version, bit for bit, on
+    every KhoslaState field and the active-row counts, after 1, 2 and 5
+    rounds and at done."""
+    gen = torch.Generator(device="cuda")
+    planes = []
+
+    def staged_on_card(name, b, n, m, k, lo, hi, eps, infeasible=0):
+        gen.manual_seed(SEED + b + n + m + hi)
+        cols, vals = device_arcs(gen, b, n, m, k, lo, hi)
+        if infeasible:
+            # every person of these instances has one arc, to object 0
+            cols[:infeasible] = -1
+            cols[:infeasible, :, 0] = 0
+        st = port.stage_batch_sparse_device(cols, vals, m, eps=eps)
+        planes.append((name, st.values_nm, st.thresholds,
+                       np.float32(st.eps_val), infeasible))
+
+    staged_on_card("256x(128x512,k=8)", 256, 128, 512, 8, 300, 1000,
+                   1.0 / 512)
+    staged_on_card("64x(256x2048,k=8)", 64, 256, 2048, 8, 300, 1000,
+                   1.0 / 2048)
+    staged_on_card("tie-heavy [1,4) 256x(128x512,k=8)", 256, 128, 512, 8,
+                   1, 4, 1.0 / 512)
+    staged_on_card("8 infeasible of 64x(32x128,k=4)", 64, 32, 128, 4, 1, 5,
+                   0.5, infeasible=8)
+    # n not a multiple of 8, plane compacted on the host
+    hc, hv = port.generators.gen_batch_ksparse(SEED, 32, 100, 700, 6)
+    hst = port.stage_batch_sparse(hc, hv, 700)
+    width = hst.values_nm.shape[2]
+    assert width & (width - 1), ("expected a width off the powers of two",
+                                 width)
+    planes.append(("host-compacted 32x(100x700,k=6)", hst.values_nm,
+                   hst.thresholds, np.float32(hst.eps_val), 0))
+
+    cases = []
+    for name, plane, thr, eps, infeasible in planes:
+        b, n, mp = plane.shape
+        got = want = ksp.khosla_init(plane)
+        rows_k = torch.zeros(b, dtype=torch.int64, device="cuda")
+        rows_p = torch.zeros(b, dtype=torch.int64, device="cuda")
+        total = 0
+        for chunk in [1, 1, 3] + [64] * 200:
+            got = ksp.ksp_chunk(plane, got, eps, thr, chunk,
+                                act_rows=rows_k)
+            torch.cuda.synchronize()
+            want = ksp.ksp_chunk_reference(plane, want, eps, thr, chunk,
+                                           act_rows=rows_p)
+            total += chunk
+            bad = ksp_states_equal(got, want)
+            if not torch.equal(rows_k, rows_p):
+                bad.append("act_rows")
+            assert not bad, (name, total, bad)
+            if not bool(ksp_active(got).any()):
+                break
+        assert not bool(ksp_active(got).any()), (name, "not done", total)
+        unassigned = (got.p2o == 2**31 - 1).sum(dim=1)
+        assert unassigned[:infeasible].tolist() == [n - 1] * infeasible
+        assert int(unassigned[infeasible:].max()) == 0, name
+        # a state that enters done comes out unchanged
+        again = ksp.ksp_chunk(plane, got, eps, thr, 64)
+        assert not ksp_states_equal(again, got), (name, "done at entry")
+        cases.append({"case": name, "plane": [b, n, mp],
+                      "nits_max": int(got.nits.max()),
+                      "dropped": int(got.dropped.sum()),
+                      "act_rows": int(rows_k.sum())})
+    emit({"phase": "ksp_kernel_vs_plain", "kernel": "ksp_kernel",
+          "checkpoints": "after 1, 2, 5 rounds, then every 64 to done, "
+                         "then once more from the done state",
+          "cases": cases, "tolerance": 0, "max_abs_err": 0.0,
+          "fields": "prices, p2o, o2p, dropped, nits + act_rows, "
+                    "bit-exact"})
+
+
+def phase_sparse_stream(port, batch, ksp, scipy_lsa):
+    """The sparse mode at full size: 5 batches of 4096 x (128 x 512, k = 8)
+    made on the card, staged on the card, streamed with window 2."""
+    b, n, m, k, nbatch = 4096, 128, 512, 8, 5
+    gen = torch.Generator(device="cuda")
+    raw = []
+    for i in range(nbatch):
+        gen.manual_seed(SEED + 100 + i)
+        raw.append(device_arcs(gen, b, n, m, k, 300, 1000))
+    stage_ms, staged = sync_ms(lambda: [
+        port.stage_batch_sparse_device(c, v, m, eps=1.0 / m)
+        for c, v in raw])
+
+    ksp.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    first_ms, sols = sync_ms(
+        lambda: port.solve_batch_sparse_stream(staged, window=2))
+    launches = ksp.LAUNCHES
+    assert launches > 0, "the sparse path launched no Khosla kernel"
+    warm_ms, sols2 = sync_ms(
+        lambda: port.solve_batch_sparse_stream(staged, window=2), reps=3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    call_ms, one = sync_ms(
+        lambda: batch._sparse_solve_staged(staged[0], 10_000_000, 16),
+        reps=3)
+    # the stream's yardsticks: the same batches one after another, and
+    # the stream with one batch in flight
+    seq_ms, _ = sync_ms(lambda: [
+        batch._sparse_solve_staged(st, 10_000_000, 16) for st in staged],
+        reps=3)
+    window1_ms, _ = sync_ms(
+        lambda: port.solve_batch_sparse_stream(staged, window=1), reps=3)
+    assert len(sols) == nbatch
+    for s, s2 in zip(sols, sols2):
+        assert int(s.num_unassigned.sum()) == 0, "unassigned persons"
+        assert np.array_equal(s.person_to_object, s2.person_to_object)
+    for field in ("person_to_object", "object_to_person", "nits",
+                  "objective", "num_unassigned"):
+        assert np.array_equal(getattr(one, field), getattr(sols[0], field)), \
+            ("per-call solve differs from the stream", field)
+    checked = 0
+    for bi_batch in (0, nbatch - 1):
+        cols = raw[bi_batch][0].cpu().numpy()
+        vals = raw[bi_batch][1].cpu().numpy().astype(np.float64)
+        for bi in range(0, b, b // 4):
+            want = sparse_scipy_objective(scipy_lsa, cols[bi], vals[bi], m)
+            assert sols[bi_batch].objective[bi] == want, (bi_batch, bi)
+            checked += 1
+    nits = np.concatenate([s.nits for s in sols])
+    emit({"phase": "sparse_stream", "batches": nbatch, "batch": b, "n": n,
+          "m": m, "k": k, "values": "integers in [300, 1000) as float32, "
+          "made on the card", "eps": 1.0 / m, "window": 2,
+          "stage_ms": stage_ms, "first_call_ms": first_ms,
+          "warm_median_ms": warm_ms,
+          "instances_per_s_streamed": nbatch * b / (warm_ms / 1e3),
+          "sequential_ms": seq_ms, "window1_ms": window1_ms,
+          "per_call_ms": call_ms,
+          "instances_per_s_per_call": b / (call_ms / 1e3),
+          "nits_p50": float(np.median(nits)), "nits_max": int(nits.max()),
+          "ksp_kernel_launches": launches, "scipy_checked": checked,
+          "per_call_equals_stream": True, "peak_device_gib": peak_gib})
+    return staged, raw, launches, call_ms
+
+
+def phase_sparse_breakdown(batch, ksp, staged, raw, call_ms):
+    """Where the wall of one warm staged sparse solve goes: each step
+    timed on its own (median of 3, each ended by a device sync), and the
+    staging apart."""
+    from sparse_linear_assignment_tpu_torch.solution import (
+        UNASSIGNED,
+        o2p_from_p2o,
+    )
+
+    st = staged[0]
+    cols, vals = raw[0]
+    m = st.m
+    eps = np.float32(st.eps_val)
+    t = {}
+    t["kernel_ms"], states = sync_ms(lambda: ksp.ksp_chunk(
+        st.values_nm, ksp.khosla_init(st.values_nm), eps, st.thresholds,
+        batch._SPARSE_KERNEL_BUDGET), reps=3)
+    t["done_check_ms"], undone = sync_ms(
+        lambda: bool(ksp_active(states).any()), reps=3)
+    assert not undone
+    t["readback_ms"], p2o = sync_ms(
+        lambda: (states.p2o.cpu().numpy(), states.nits.cpu().numpy())[0],
+        reps=3)
+    t["objective_ms"], _ = sync_ms(
+        lambda: batch._sparse_device_objective(st, states.p2o).cpu(),
+        reps=3)
+    t["host_post_ms"], _ = sync_ms(
+        lambda: (o2p_from_p2o(p2o, m), (p2o == UNASSIGNED).sum(axis=1)),
+        reps=3)
+    total = sum(t.values())
+    scatter_ms, (_, w_lo, w_hi) = sync_ms(
+        lambda: batch._sparse_stage_scatter(cols, vals, m, True), reps=3)
+    thresholds_ms, _ = sync_ms(
+        lambda: (m / 2.0) * (w_hi - w_lo + torch.tensor(
+            st.eps_val, dtype=torch.float32, device="cuda")), reps=3)
+    emit({"phase": "sparse_breakdown", **t, "sum_ms": total,
+          "warm_wall_ms": call_ms,
+          "kernel_share_of_sum": t["kernel_ms"] / total,
+          "staging": {"scatter_ms": scatter_ms,
+                      "thresholds_ms": thresholds_ms},
+          "note": "kernel_ms holds khosla_init and one 64-round launch"})
+
+
+def phase_sparse_stream_split(port, batch, staged):
+    """Where the streamed solve's wall goes on the host: the time spent
+    inside each dispatch and each finish, and inside the finishes in the
+    device objective and in ``o2p_from_p2o``, summed over the batches of
+    one warm streamed solve, with one and with two batches in flight.
+    Host clock, no added syncs."""
+    names = ("_sparse_dispatch", "_sparse_finish",
+             "_sparse_device_objective", "o2p_from_p2o")
+    saved = {k: getattr(batch, k) for k in names}
+    spent = {}
+
+    def timed(name):
+        fn = saved[name]
+
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name] = (spent.get(name, 0.0)
+                               + (time.perf_counter() - t0) * 1e3)
+        return wrapper
+
+    out = {}
+    try:
+        for k in names:
+            setattr(batch, k, timed(k))
+        for window in (1, 2, 1, 2):
+            spent.clear()
+            wall_ms, _ = sync_ms(lambda: port.solve_batch_sparse_stream(
+                staged, window=window))
+            out[f"window{window}"] = {
+                "wall_ms": wall_ms,
+                "dispatch_ms": spent["_sparse_dispatch"],
+                "finish_ms": spent["_sparse_finish"],
+                "of_finish_objective_ms": spent["_sparse_device_objective"],
+                "of_finish_o2p_ms": spent["o2p_from_p2o"]}
+    finally:
+        for k, fn in saved.items():
+            setattr(batch, k, fn)
+    emit({"phase": "sparse_stream_split", "batches": len(staged), **out,
+          "note": "sums over the batches of the second of two streamed "
+                  "solves per window; finish holds the done check, the "
+                  "readbacks, the objective and the host post-processing"})
+
+
+def phase_ksp_kernel_time(batch, ksp, staged):
+    """The Khosla kernel at the main path's shape: CUDA-event time of one
+    launch from the initial state, the plain version on the same input
+    for the same rounds, and the bound."""
+    st = staged[0]
+    plane, thr = st.values_nm, st.thresholds
+    eps = np.float32(st.eps_val)
+    b, n, mp = plane.shape
+    budget = batch._SPARSE_KERNEL_BUDGET
+    s0 = ksp.khosla_init(plane)
+    rows = torch.zeros(b, dtype=torch.int64, device="cuda")
+    got = ksp.ksp_chunk(plane, s0, eps, thr, budget, act_rows=rows)
+    assert not bool(ksp_active(got).any()), "not done within the budget"
+    act_rows = int(rows.sum())
+    kernel_ms = event_ms(
+        lambda: ksp.ksp_chunk(plane, s0, eps, thr, budget), reps=5)
+    plain_ms, want = sync_ms(
+        lambda: ksp.ksp_chunk_reference(plane, s0, eps, thr, budget))
+    bad = ksp_states_equal(got, want)
+    assert not bad, ("ksp kernel at the main path's shape", bad)
+    err = float((got.prices.double() - want.prices.double()).abs().max())
+    elem = plane.element_size()
+    # prices, p2o, dropped and nits read and written; thresholds read
+    state_bytes = 2 * (b * mp * 4 + b * n * 4 + b * n + b * 4) + b * 4
+    bytes_once = plane.numel() * elem + state_bytes
+    ops = 2 * mp * act_rows                  # a subtract and a max each
+    bound_bytes_ms = bytes_once / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = ops / F32_OPS_PER_S * 1e3
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    bound_by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
+    row_bytes = act_rows * mp * elem
+    nits_max = int(got.nits.max())
+    emit({"phase": "ksp_kernel_time", "shape": [b, n, mp],
+          "dtype": "float32", "rounds_budget": budget,
+          "nits_p50": float(got.nits.float().median()),
+          "nits_max": nits_max, "ms": kernel_ms, "plain_ms": plain_ms,
+          "plain_rounds": nits_max, "bound_ms": bound_ms,
+          "bound_by": bound_by, "bytes_once": bytes_once,
+          "bound_ops_ms": bound_ops_ms, "act_rows": act_rows,
+          "active_row_bytes": row_bytes,
+          "active_row_bound_ms": row_bytes / HBM_BYTES_PER_S * 1e3,
+          "library_ms": None, "plain_bit_exact": True})
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err}
+
+
+def phase_sparse_host(port, batch, ksp, scipy_lsa):
+    """The host-staged path: ``solve_batch_sparse(engine="dense")`` from
+    host arrays, the compacted plane and the ``used_cols`` map back to
+    original object ids."""
+    b, n, m, k = 1024, 256, 2048, 8
+    t0 = time.perf_counter()
+    cols, vals = port.generators.gen_batch_ksparse(SEED, b, n, m, k)
+    gen_s = time.perf_counter() - t0
+    before = ksp.LAUNCHES
+    wall_ms, sol = sync_ms(lambda: port.solve_batch_sparse(
+        cols, vals, m, engine="dense"))
+    assert ksp.LAUNCHES > before
+    assert int(sol.num_unassigned.sum()) == 0, "unassigned persons"
+    for bi in range(0, b, b // 4):
+        want = sparse_scipy_objective(scipy_lsa, cols[bi], vals[bi], m)
+        assert sol.objective[bi] == want, bi
+        for i, j in enumerate(sol.person_to_object[bi]):
+            assert j in cols[bi, i] and sol.object_to_person[bi, j] == i
+    width = batch._plane_width(int(np.max([
+        np.unique(cols[bi]).size for bi in range(b)])))
+    emit({"phase": "sparse_host", "batch": b, "n": n, "m": m, "k": k,
+          "generate_s": gen_s, "wall_ms": wall_ms, "plane_width": width,
+          "nits_p50": float(np.median(sol.nits)),
+          "nits_max": int(sol.nits.max()), "scipy_equal": 4,
+          "note": "wall_ms holds the host densify and the copy of the "
+                  "plane to the card"})
+
+
+def phase_sparse_infeasible(port):
+    """A small batch with infeasible instances ends through the drop
+    rule, with the expected ``num_unassigned``."""
+    b, n, m, k, bad = 16, 32, 128, 4, (3, 7, 12)
+    cols, vals = port.generators.gen_batch_ksparse(SEED + 1, b, n, m, k,
+                                                   min_value=1.0,
+                                                   range_width=4.0)
+    for bi in bad:  # every person's only arc is object 5
+        cols[bi] = -1
+        cols[bi, :, 0] = 5
+    wall_ms, sol = sync_ms(lambda: port.solve_batch_sparse(
+        cols, vals, m, eps=0.5, engine="dense"))
+    want = np.zeros(b, dtype=np.int32)
+    want[list(bad)] = n - 1
+    assert np.array_equal(sol.num_unassigned, want), sol.num_unassigned
+    owners = [int(np.nonzero(sol.person_to_object[bi] == 5)[0][0])
+              for bi in bad]
+    emit({"phase": "sparse_infeasible", "batch": b, "n": n, "m": m,
+          "infeasible": list(bad), "num_unassigned": want.tolist(),
+          "owners_of_the_shared_object": owners,
+          "nits_max": int(sol.nits.max()), "wall_ms": wall_ms})
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "script needs one CUDA GPU", file=sys.stderr)
@@ -459,6 +827,7 @@ def main() -> int:
         fr_big,
         fr_kernel,
     )
+    from sparse_linear_assignment_tpu_torch.ops import ksparse_kernel as ksp
     from sparse_linear_assignment_tpu_torch.ops.fr_dense import fr_init
 
     # 1. the card and the build
@@ -468,6 +837,7 @@ def main() -> int:
     _build.build_all()
     fr_kernel._kernel_lib()
     fr_big._kernel_lib()
+    ksp._kernel_lib()
     build_s = time.perf_counter() - t0
     # the native engine is built here too (g++, first use), so that no
     # timed phase below pays for its build
@@ -486,6 +856,7 @@ def main() -> int:
     # 2. kernels vs plain versions on the card
     max_err = phase_kernel_vs_plain(fr_kernel, fr_init)
     phase_big_kernel_vs_plain(fr_big, fr_init)
+    phase_ksp_kernel_vs_plain(port, batch, ksp)
 
     # 3. the north-star solve through the public entry point
     b, n, max_cost = 4096, 256, 1000
@@ -626,7 +997,18 @@ def main() -> int:
     # 8. the native straggler tail of the host-costs branch
     phase_native_tail(port, batch, scipy_lsa)
 
-    # 9. the kernels line
+    # 9. the batched sparse mode on the Khosla kernel
+    staged, raw, ksp_launches, sparse_call_ms = phase_sparse_stream(
+        port, batch, ksp, scipy_lsa)
+    phase_sparse_breakdown(batch, ksp, staged, raw, sparse_call_ms)
+    phase_sparse_stream_split(port, batch, staged)
+    kspt = phase_ksp_kernel_time(batch, ksp, staged)
+    del staged, raw
+    phase_sparse_host(port, batch, ksp, scipy_lsa)
+    phase_sparse_infeasible(port)
+
+    # 10. the run's total and the kernels line
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "fr_kernel",
         "route": "cuda",
@@ -652,6 +1034,19 @@ def main() -> int:
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "ksp_kernel",
+        "route": "cuda",
+        "source": "sparse_linear_assignment_tpu_torch/csrc/ksp_kernel.cu",
+        "replaces": "sparse_linear_assignment_tpu/ops/pallas_ksparse.py:211",
+        "launches": ksp_launches,
+        "max_abs_err": kspt["max_abs_err"],
+        "checked_vs_plain": True,
+        "ms": kspt["ms"],
+        "plain_ms": kspt["plain_ms"],
+        "bound_ms": kspt["bound_ms"],
+        "bound_by": kspt["bound_by"],
         "library_ms": None,
     }]})
     emit({"ok": True, "device": {

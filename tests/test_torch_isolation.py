@@ -26,6 +26,10 @@ def test_import_loads_no_jax():
         "import sparse_linear_assignment_tpu_torch as p\n"
         "import sparse_linear_assignment_tpu_torch.ops.fr_kernel\n"
         "import sparse_linear_assignment_tpu_torch.ops.fr_big\n"
+        "import sparse_linear_assignment_tpu_torch.ops.dense\n"
+        "import sparse_linear_assignment_tpu_torch.ops.auction\n"
+        "import sparse_linear_assignment_tpu_torch.ops.ksparse_kernel\n"
+        "import sparse_linear_assignment_tpu_torch.generators\n"
         "import sparse_linear_assignment_tpu_torch.cpu_reference\n"
         "import sparse_linear_assignment_tpu_torch.utils.trace\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib') or "
