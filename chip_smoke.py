@@ -22,7 +22,12 @@ drives the port's paths through ``solve_batch``:
   and staged on the card (``stage_batch_sparse_device``) and streamed
   (``solve_batch_sparse_stream``), scipy's objective on a sample; the
   host-staged path with column compaction (``solve_batch_sparse``) on
-  1024 x (256 x 2048, k = 8); a batch with infeasible instances.
+  1024 x (256 x 2048, k = 8); a batch with infeasible instances;
+- the forward engine on the fused round kernel: 4096 instances of
+  256 persons x 512 objects through ``solve_batch`` (``solver="auto"``,
+  scipy's objective on a sample), the eps-scaling path on 512 x 256²
+  (``solver="forward"``), rectangular ``linear_sum_assignment``; the
+  Khosla engine and the plain-rounds FR route (float64, N % 128 != 0).
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -807,6 +812,358 @@ def phase_sparse_infeasible(port):
           "nits_max": int(sol.nits.max()), "wall_ms": wall_ms})
 
 
+# ----------------------------------------------------------------------
+# the forward and Khosla engines (the fused dense round kernel)
+# ----------------------------------------------------------------------
+ROUND_OUT = ("prices", "p2o", "o2p", "chosen", "maxp")
+
+
+def round_outputs_differ(got, want):
+    return [k for k, a, b in zip(ROUND_OUT, got, want)
+            if a.dtype != b.dtype or not torch.equal(a, b)]
+
+
+def phase_dense_round_vs_plain(batch, dr, forward_init):
+    """The fused round kernel against its plain version, bit for bit,
+    in all five outputs: from the initial state and after 1, 2, 5 and 50
+    rounds of the forward chunk, as the state stands and with some
+    instances marked done and a per-instance eps; the single-instance
+    entry point against the batch one at B = 1."""
+    gen = torch.Generator(device="cuda")
+    cases = []
+    worst = 0.0
+    for name, b, n, m, arcs in (
+        ("128x128", 32, 128, 128, 0),
+        ("256x256", 16, 256, 256, 0),
+        ("128x256", 32, 128, 256, 0),
+        ("128x8192", 4, 128, 8192, 0),
+        ("256x512", 32, 256, 512, 0),
+        ("-inf plane 128x512, 6 arcs a person, 8 single-arc persons",
+         16, 128, 512, 6),
+        ("24x40 off every tile", 8, 24, 40, 0),
+    ):
+        gen.manual_seed(SEED + 7 * n + m)
+        vals = -torch.randint(1, 1000, (b, m, n), generator=gen,
+                              device="cuda", dtype=torch.int32).float()
+        if arcs:
+            keep = torch.rand((b, m, n), generator=gen,
+                              device="cuda").argsort(dim=1) < arcs
+            # persons 0..7 keep one arc each, to the object of their index
+            keep[:, :, :8] = False
+            keep[:, torch.arange(8), torch.arange(8)] = True
+            vals = torch.where(keep, vals, float("-inf"))
+        target = 1.0 / (n + 1)
+        c = float(vals[torch.isfinite(vals)].abs().max())
+        st = forward_init(vals, c / 128.0 if n == m else target)
+        toleration = 2.0 ** (int(np.log2(c + 1e-7)) - 53)
+        at = 0
+        for upto in (0, 1, 2, 5, 50):
+            if upto > at:
+                st, _ = batch._batch_chunk_kernel(
+                    vals, st, target, toleration, 100_000, upto - at, n != m)
+                at = upto
+            # the state as it stands, then with forced done flags and a
+            # per-instance eps
+            done2 = st.done.clone()
+            done2[::3] = True
+            eps2 = st.eps * torch.linspace(0.5, 2.0, b, device="cuda")
+            for eps_b, done_b in ((st.eps, st.done), (eps2, done2)):
+                args = (vals, st.prices, st.p2o, st.o2p, eps_b, done_b)
+                got = dr.fused_dense_round_batch(*args)
+                torch.cuda.synchronize()
+                want = dr.fused_dense_round_batch_reference(*args)
+                bad = round_outputs_differ(got, want)
+                assert not bad, (name, upto, bad)
+                worst = max(worst, float(
+                    (got[0].double() - want[0].double()).abs().max()))
+            one = dr.fused_dense_round(
+                vals[1], st.prices[1], st.p2o[1], st.o2p[1],
+                float(st.eps[1]), bool(st.done[1]))
+            at_b1 = dr.fused_dense_round_batch(
+                vals[1:2], st.prices[1:2], st.p2o[1:2], st.o2p[1:2],
+                st.eps[1:2], st.done[1:2])
+            bad = round_outputs_differ(one, [x[0] for x in at_b1])
+            assert not bad, (name, upto, "single entry", bad)
+        cases.append({"case": name, "batch": b,
+                      "done_after_50": int(st.done.sum()),
+                      "eps_reductions": int(st.nreductions.sum()),
+                      "unassigned_after_50":
+                          int((st.p2o == 2**31 - 1).sum())})
+    emit({"phase": "dense_round_vs_plain", "kernel": "dense_round_kernel",
+          "checkpoints": "initial state, after 1, 2, 5, 50 rounds; each "
+                         "as it stands and with forced done flags and "
+                         "per-instance eps; single entry = batch at B=1",
+          "cases": cases, "tolerance": 0, "max_abs_err": worst,
+          "fields": "prices, p2o, o2p, chosen, maxp, bit-exact"})
+    return worst
+
+
+def scipy_objectives(scipy_lsa, costs, rows, maximize=False):
+    out = []
+    for i in rows:
+        c = costs[i].astype(np.float64)
+        r, k = scipy_lsa(c, maximize=maximize)
+        out.append(float(c[r, k].sum()))
+    return out
+
+
+def phase_forward_rect(port, batch, dr, scipy_lsa):
+    """The forward engine at full size: 4096 instances of 256 persons x
+    512 objects, float32 host costs, through ``solve_batch`` with
+    ``solver="auto"`` (which resolves to the forward engine on N < M)."""
+    b, n, m = 4096, 256, 512
+    eps = 1.0 / (n + 1)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    costs = rng.integers(1, 1000, size=(b, n, m), dtype=np.int32).astype(
+        np.float32)
+    gen_s = time.perf_counter() - t0
+
+    def solve():
+        return port.solve_batch(costs, eps=eps)
+
+    dr.LAUNCHES = 0
+    first_ms, sol = sync_ms(solve)
+    launches = dr.LAUNCHES
+    assert launches > 0, "the forward path launched no dense round kernel"
+    torch.cuda.reset_peak_memory_stats()
+    warm_ms, sol2 = sync_ms(solve)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    assert np.array_equal(sol.person_to_object, sol2.person_to_object)
+    assert int(sol.num_unassigned.max()) == 0, "unassigned persons"
+    rows = list(range(0, b, b // 8))
+    want = scipy_objectives(scipy_lsa, costs, rows)
+    assert [float(sol.objective[i]) for i in rows] == want, "objectives"
+    nits = sol.nits
+    emit({"phase": "forward_rect", "batch": b, "n": n, "m": m,
+          "costs": "integers in [1, 1000) as float32, host",
+          "solver": "auto -> forward (N < M), start eps = target",
+          "eps": eps, "generate_s": gen_s, "first_call_ms": first_ms,
+          "warm_ms": warm_ms, "instances_per_s": b / (warm_ms / 1e3),
+          "nits_p50": float(np.median(nits)), "nits_max": int(nits.max()),
+          "dense_round_launches": launches, "scipy_equal": len(rows),
+          "peak_device_gib": peak_gib})
+    return costs, eps, launches, warm_ms, int(nits.max())
+
+
+def phase_forward_breakdown(batch, dr, costs, eps, warm_ms):
+    """Where the wall of one warm ``forward_rect`` solve goes: staging,
+    the chunk loop (the kernel by CUDA events around every launch, the
+    bookkeeping and gaps as the rest of the loop's wall), the alldone
+    readbacks, the result readback and the host post-processing."""
+    from sparse_linear_assignment_tpu_torch.solution import (
+        UNASSIGNED,
+        o2p_from_p2o,
+    )
+
+    b, n, m = costs.shape
+    t = {}
+    t["host_params_ms"], (eps_val, target, tol, thr) = sync_ms(
+        lambda: batch._dense_engine_params(costs, "forward", eps, n, m,
+                                           128.0))
+    t["copy_to_card_ms"], dev = sync_ms(
+        lambda: torch.from_numpy(costs).cuda())
+    t["stage_ms"], vt = sync_ms(lambda: batch._stage_values_t(dev, True))
+    del dev
+
+    events = []
+    real = batch.fused_dense_round_batch
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    batch.fused_dense_round_batch = timed
+    try:
+        t["loop_ms"], (p2o_dev, eps_dev, nits_dev) = sync_ms(
+            lambda: batch._solve_batch_dense(vt, eps_val, target, tol, thr,
+                                             "forward", 100_000, n, m))
+    finally:
+        batch.fused_dense_round_batch = real
+    kernel_ms = sum(s.elapsed_time(e) for s, e in events)
+    rounds = len(events)
+    flag = nits_dev.sum() > 0
+    readback_ms, _ = sync_ms(lambda: bool(flag), reps=5)
+    t["result_readback_ms"], p2o = sync_ms(
+        lambda: (p2o_dev.cpu().numpy(), nits_dev.cpu().numpy(),
+                 eps_dev.cpu().numpy())[0])
+    t["host_objective_ms"], _ = sync_ms(lambda: np.take_along_axis(
+        costs, p2o[:, :, None].astype(np.int64), axis=2)[:, :, 0].astype(
+            np.float64).sum(axis=1))
+    t["host_post_ms"], _ = sync_ms(
+        lambda: (o2p_from_p2o(p2o, m), (p2o == UNASSIGNED).sum(axis=1)))
+    total = sum(t.values())
+    emit({"phase": "forward_breakdown", **t, "sum_ms": total,
+          "warm_wall_ms": warm_ms, "of_loop_kernel_ms": kernel_ms,
+          "of_loop_bookkeeping_and_gaps_ms": t["loop_ms"] - kernel_ms,
+          "rounds_launched": rounds, "chunks": rounds // 64,
+          "kernel_ms_per_round": kernel_ms / rounds,
+          "alldone_readback_ms_each": readback_ms,
+          "kernel_share_of_sum": kernel_ms / total,
+          "note": "loop_ms is _solve_batch_dense: forward_init, 64-round "
+                  "chunks of one kernel launch plus the eps-scaling "
+                  "bookkeeping a round, one alldone readback a chunk"})
+    del vt
+
+
+def phase_forward_square(port, scipy_lsa):
+    """``solver="forward"`` on square instances, the eps-scaling path,
+    and rectangular ``linear_sum_assignment`` in both orientations."""
+    b, n = 512, 256
+    rng = np.random.default_rng(SEED + 2)
+    costs = rng.integers(1, 1000, size=(b, n, n)).astype(np.float32)
+    eps = 1.0 / (n + 1)
+    wall_ms, sol = sync_ms(lambda: port.solve_batch(
+        costs, solver="forward", eps=eps))
+    assert int(sol.num_unassigned.max()) == 0, "unassigned persons"
+    start = np.abs(costs.reshape(b, -1)).max(axis=1) / 128.0
+    reductions = np.rint(np.log(sol.eps / start) / np.log(0.15)).astype(int)
+    assert reductions.max() > 0, "no eps reduction anywhere"
+    rows = list(range(0, b, b // 8))
+    want = scipy_objectives(scipy_lsa, costs, rows)
+    assert [float(sol.objective[i]) for i in rows] == want, "objectives"
+    lsa = []
+    for shape in ((300, 200), (128, 256)):
+        mat = rng.integers(1, 1000, size=shape).astype(np.float64)
+        ms, (r, c) = sync_ms(lambda: port.linear_sum_assignment(mat))
+        sr, sc = scipy_lsa(mat)
+        assert len(r) == min(shape) and np.all(np.diff(r) > 0)
+        assert len(set(c.tolist())) == min(shape)
+        assert mat[r, c].sum() == mat[sr, sc].sum(), shape
+        lsa.append({"shape": list(shape), "wall_ms": ms,
+                    "scipy_equal": True})
+    emit({"phase": "forward_square", "batch": b, "n": n, "eps": eps,
+          "start_eps": "max|cost| / 128", "wall_ms": wall_ms,
+          "nits_p50": float(np.median(sol.nits)),
+          "nits_max": int(sol.nits.max()),
+          "eps_reductions_min": int(reductions.min()),
+          "eps_reductions_max": int(reductions.max()),
+          "final_eps_max": float(sol.eps.max()), "scipy_equal": len(rows),
+          "linear_sum_assignment": lsa})
+
+
+def phase_khosla_dense(port, scipy_lsa):
+    """``solver="khosla"`` on dense instances: the plain rounds of
+    ``ops/auction.py`` on the card."""
+    b, n = 64, 256
+    rng = np.random.default_rng(SEED + 3)
+    costs = rng.integers(1, 10, size=(b, n, n)).astype(np.float32)
+    eps = 1.0 / (n + 1)
+    wall_ms, sol = sync_ms(lambda: port.solve_batch(
+        costs, solver="khosla", eps=eps))
+    assert int(sol.num_unassigned.max()) == 0, "unassigned persons"
+    rows = list(range(0, b, b // 4))
+    want = scipy_objectives(scipy_lsa, costs, rows)
+    assert [float(sol.objective[i]) for i in rows] == want, "objectives"
+    emit({"phase": "khosla_dense", "batch": b, "n": n,
+          "costs": "integers in [1, 10) as float32", "eps": eps,
+          "wall_ms": wall_ms, "nits_p50": float(np.median(sol.nits)),
+          "nits_max": int(sol.nits.max()),
+          "ms_per_round": wall_ms / int(sol.nits.max()),
+          "scipy_equal": len(rows)})
+
+
+def phase_fr_plain_rounds(port, batch, fr_kernel, scipy_lsa):
+    """The FR engine's plain-rounds route through ``solve_batch``:
+    float64 values, and float32 instances off the fused kernel's
+    tiling."""
+    out = []
+    before = fr_kernel.LAUNCHES
+    for b, n, dtype in ((64, 256, np.float64), (64, 200, np.float32)):
+        rng = np.random.default_rng(SEED + n)
+        costs = rng.integers(1, 1000, size=(b, n, n)).astype(np.float64)
+        eps = 1.0 / (n + 1)
+        assert batch._route(b, n, n, dtype, None) == "plain"
+        wall_ms, sol = sync_ms(lambda: port.solve_batch(
+            costs, eps=eps, dtype=dtype, integer=False))
+        assert int(sol.num_unassigned.max()) == 0, "unassigned persons"
+        rows = list(range(0, b, b // 4))
+        want = scipy_objectives(scipy_lsa, costs, rows)
+        assert [float(sol.objective[i]) for i in rows] == want, (n, dtype)
+        out.append({"batch": b, "n": n, "dtype": np.dtype(dtype).name,
+                    "wall_ms": wall_ms,
+                    "nits_p50": float(np.median(sol.nits)),
+                    "nits_max": int(sol.nits.max()),
+                    "scipy_equal": len(rows)})
+    assert fr_kernel.LAUNCHES == before, "the FR kernel ran on a plain route"
+    emit({"phase": "fr_plain_rounds", "cases": out,
+          "host_cpus": os.cpu_count(),
+          "note": "host costs: stragglers left after 96 rounds go to the "
+                  "native engine, as on the JAX schedule"})
+
+
+def phase_dense_round_time(dr, forward_init):
+    """The fused round kernel at the main path's shape: CUDA-event time
+    of one launch from the initial state, the plain version on the same
+    input, and the bound."""
+    b, n, m = 4096, 256, 512
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 4)
+    vals = -torch.randint(1, 1000, (b, m, n), generator=gen, device="cuda",
+                          dtype=torch.int32).float()
+    st = forward_init(vals, 1.0 / (n + 1))
+    args = (vals, st.prices, st.p2o, st.o2p, st.eps, st.done)
+    got = dr.fused_dense_round_batch(*args)
+    kernel_ms = event_ms(lambda: dr.fused_dense_round_batch(*args), reps=5)
+    done_ms = event_ms(lambda: dr.fused_dense_round_batch(
+        *args[:5], torch.ones_like(st.done)), reps=5)
+    plain_ms, want = sync_ms(
+        lambda: dr.fused_dense_round_batch_reference(*args))
+    bad = round_outputs_differ(got, want)
+    assert not bad, ("dense round at the main path's shape", bad)
+    # the single-instance entry point: the same kernel at B = 1
+    one = (vals[0], st.prices[0], st.p2o[0], st.o2p[0], st.eps[0],
+           st.done[0])
+    single_ms = event_ms(lambda: dr.fused_dense_round(*one), reps=5)
+    single_plain_ms, _ = sync_ms(
+        lambda: dr.fused_dense_round_batch_reference(
+            *(x[None] for x in one)), reps=5)
+    err = float((got[0].double() - want[0].double()).abs().max())
+    assigned = int((got[1] != 2**31 - 1).sum())
+    # the widest plane the forward engine meets within 1024² elements:
+    # 128 persons, so two threads share a person's 8192 objects
+    wb, wn, wm = 128, 128, 8192
+    wide = -torch.randint(1, 1000, (wb, wm, wn), generator=gen,
+                          device="cuda", dtype=torch.int32).float()
+    wst = forward_init(wide, 1.0 / (wn + 1))
+    wargs = (wide, wst.prices, wst.p2o, wst.o2p, wst.eps, wst.done)
+    wide_ms = event_ms(lambda: dr.fused_dense_round_batch(*wargs), reps=5)
+    wide_bytes = wide.numel() * 4 + wb * (16 * wm + 16 * wn + 5)
+    del wide, wst, wargs
+    # every input read once, every output written once
+    state_in = b * (m * 4 + n * 4 + m * 4 + 4 + 1)
+    state_out = b * (m * 4 + n * 4 + m * 4 + n * 4 + n * 4)
+    bytes_once = vals.numel() * 4 + state_in + state_out
+    # a subtract and two compares per element for the bids, a subtract
+    # and a max for the margins
+    ops = 5 * vals.numel()
+    bound_bytes_ms = bytes_once / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = ops / F32_OPS_PER_S * 1e3
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    bound_by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
+    emit({"phase": "dense_round_time", "shape": [b, m, n],
+          "dtype": "float32", "state": "initial: every person bids",
+          "ms": kernel_ms, "ms_all_done": done_ms, "plain_ms": plain_ms,
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "bytes_once": bytes_once, "bound_ops_ms": bound_ops_ms,
+          "bytes_per_s_achieved": bytes_once / (kernel_ms / 1e3),
+          "assigned_after_the_round": assigned, "library_ms": None,
+          "plain_bit_exact": True,
+          "single_entry": {"shape": [m, n], "ms": single_ms,
+                           "plain_ms": single_plain_ms,
+                           "bound_ms": bound_ms / b},
+          "wide_plane": {"shape": [wb, wm, wn], "ms": wide_ms,
+                         "threads_per_person": 2,
+                         "bound_ms": wide_bytes / HBM_BYTES_PER_S * 1e3}})
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -827,7 +1184,9 @@ def main() -> int:
         fr_big,
         fr_kernel,
     )
+    from sparse_linear_assignment_tpu_torch.ops import dense_round as dr
     from sparse_linear_assignment_tpu_torch.ops import ksparse_kernel as ksp
+    from sparse_linear_assignment_tpu_torch.ops.auction import forward_init
     from sparse_linear_assignment_tpu_torch.ops.fr_dense import fr_init
 
     # 1. the card and the build
@@ -838,6 +1197,7 @@ def main() -> int:
     fr_kernel._kernel_lib()
     fr_big._kernel_lib()
     ksp._kernel_lib()
+    dr._kernel_lib()
     build_s = time.perf_counter() - t0
     # the native engine is built here too (g++, first use), so that no
     # timed phase below pays for its build
@@ -857,6 +1217,7 @@ def main() -> int:
     max_err = phase_kernel_vs_plain(fr_kernel, fr_init)
     phase_big_kernel_vs_plain(fr_big, fr_init)
     phase_ksp_kernel_vs_plain(port, batch, ksp)
+    dr_err = phase_dense_round_vs_plain(batch, dr, forward_init)
 
     # 3. the north-star solve through the public entry point
     b, n, max_cost = 4096, 256, 1000
@@ -1007,7 +1368,17 @@ def main() -> int:
     phase_sparse_host(port, batch, ksp, scipy_lsa)
     phase_sparse_infeasible(port)
 
-    # 10. the run's total and the kernels line
+    # 10. the forward and Khosla engines and the plain-rounds FR route
+    rcosts, reps_, dr_launches, rect_warm_ms, _ = phase_forward_rect(
+        port, batch, dr, scipy_lsa)
+    phase_forward_breakdown(batch, dr, rcosts, reps_, rect_warm_ms)
+    del rcosts
+    phase_forward_square(port, scipy_lsa)
+    phase_khosla_dense(port, scipy_lsa)
+    phase_fr_plain_rounds(port, batch, fr_kernel, scipy_lsa)
+    drt = phase_dense_round_time(dr, forward_init)
+
+    # 11. the run's total and the kernels line
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "fr_kernel",
@@ -1047,6 +1418,22 @@ def main() -> int:
         "plain_ms": kspt["plain_ms"],
         "bound_ms": kspt["bound_ms"],
         "bound_by": kspt["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "dense_round_kernel",
+        "route": "cuda",
+        "source":
+            "sparse_linear_assignment_tpu_torch/csrc/dense_round_kernel.cu",
+        "replaces": "sparse_linear_assignment_tpu/ops/pallas_dense.py:191 "
+                    "and sparse_linear_assignment_tpu/ops/pallas_dense.py"
+                    ":247",
+        "launches": dr_launches,
+        "max_abs_err": max(dr_err, drt["max_abs_err"]),
+        "checked_vs_plain": True,
+        "ms": drt["ms"],
+        "plain_ms": drt["plain_ms"],
+        "bound_ms": drt["bound_ms"],
+        "bound_by": drt["bound_by"],
         "library_ms": None,
     }]})
     emit({"ok": True, "device": {

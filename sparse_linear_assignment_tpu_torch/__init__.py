@@ -6,8 +6,11 @@ through the kernels' plain PyTorch versions when the caller passes
 ``device="cpu"``:
 
 - dense instances through the forward-reverse auction: ``solve_batch``,
-  ``solve_batch_stream``, ``linear_sum_assignment``
+  ``solve_batch_stream``, ``linear_sum_assignment``, ``BatchedLAP``
   (``csrc/fr_kernel.cu``; big singles on ``csrc/fr_big_kernel.cu``);
+  rectangular instances and ``solver="forward"`` through the forward
+  auction on the fused round kernel (``csrc/dense_round_kernel.cu``),
+  ``solver="khosla"`` and other float types on the plain rounds;
 - k-sparse instances through the Khosla auction on a densified plane:
   ``solve_batch_sparse``, ``stage_batch_sparse``,
   ``stage_batch_sparse_device``, ``solve_batch_sparse_stream``
@@ -31,7 +34,12 @@ from .batch import (
     stage_batch_sparse,
     stage_batch_sparse_device,
 )
-from .ops.auction import khosla_state_from_jax, khosla_state_to_numpy
+from .ops.auction import (
+    forward_state_from_jax,
+    forward_state_to_numpy,
+    khosla_state_from_jax,
+    khosla_state_to_numpy,
+)
 from .ops.fr_dense import state_to_numpy, weights_from_jax_state
 from .solution import UNASSIGNED, convert_indices
 
@@ -40,6 +48,8 @@ __all__ = [
     "BatchedLAP",
     "UNASSIGNED",
     "convert_indices",
+    "forward_state_from_jax",
+    "forward_state_to_numpy",
     "generators",
     "khosla_state_from_jax",
     "khosla_state_to_numpy",

@@ -1,20 +1,35 @@
-"""Batched assignment: dense instances through the forward-reverse (FR)
-auction, k-sparse instances through the Khosla auction.
+"""Batched assignment: dense instances through the forward-reverse (FR),
+forward and Khosla auctions, k-sparse instances through the Khosla
+auction.
 
 The port of the JAX package's ``batch.py``.  Dense mode: costs
-``[B, N, N]`` in, assignments and objectives out.  Two routes:
+``[B, N, M]`` (``N <= M``) in, assignments and objectives out.  The FR
+engine (``solver="fr"``, what ``"auto"`` resolves to) serves square
+instances on three routes:
 
-- **fused**: square, tile-aligned float32 or int32-lattice instances up
-  to 1024² run on the batched FR kernel (``ops/fr_kernel.py``): one
+- **fused**: tile-aligned float32 or int32-lattice instances up to
+  1024² run on the batched FR kernel (``ops/fr_kernel.py``): one
   deep-budget chunk, then continuation chunks for stragglers.  With
   host costs, once at most 128 instances are undone they are finished
   on the native C++ engine (``cpu_reference.py``); device-resident
   costs keep them on the device;
-- **big single**: float32 square instances beyond ``_BIG_MIN_ELEMS``
-  with N % 128 == 0, in batches of at most 64, run one instance after
+- **big single**: float32 instances beyond ``_BIG_MIN_ELEMS`` with
+  N % 128 == 0, in batches of at most 64, run one instance after
   another on the multi-CTA kernel (``ops/fr_big.py``); an instance
   still undone at ``max_iterations`` is finished on the native engine
-  when host costs are given.
+  when host costs are given;
+- **plain rounds**: every other square request (float64 and other float
+  types, N % 128 != 0, and beyond 1024² whatever the big-single route
+  does not take) runs ``ops/fr_dense.fr_round`` in chunks, compacting
+  the unfinished instances into power-of-two buckets and handing the
+  last stragglers to the native engine (:func:`_solve_batch_fr_plain`).
+
+The forward engine (``solver="forward"``, and ``"fr"`` whenever
+``N != M``) and the Khosla engine (``"khosla"``) run 64-round chunks
+over the whole batch (:func:`_solve_batch_dense`): the forward engine
+in float32 with one launch of the fused round kernel
+(``ops/dense_round.py``) a round and the eps-scaling bookkeeping in
+PyTorch, everything else on the plain rounds of ``ops/auction.py``.
 
 Sparse mode (``solve_batch_sparse``, ``stage_batch_sparse``,
 ``stage_batch_sparse_device``, ``solve_batch_sparse_stream``): arcs
@@ -23,10 +38,9 @@ person-major plane ``[B, N, M']`` (``-inf`` at non-arcs), on the host
 with column compaction or on the device by scatter, and solved by
 forward-only Khosla rounds with the drop rule: float32 on the Khosla
 kernel (``ops/ksparse_kernel.py``), other float types on the plain
-rounds (``ops/auction.py``).
-
-Every other route of the JAX package raises ``NotImplementedError``
-naming the ``ROADMAP.md`` item it waits for; nothing degrades quietly.
+rounds (``ops/auction.py``).  The padded sparse engine raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item; nothing degrades
+quietly.
 
 Entry points take ``device=None``, meaning ``"cuda"``; with no CUDA
 device they raise.  ``device="cpu"`` runs the kernels' plain PyTorch
@@ -43,7 +57,11 @@ TPU-only measures of the JAX batch path that the port drops:
   bitcast f64); the objective is summed in float64 on the device;
 - the power-of-two lane width of the sparse plane and the object-major
   plane of the XLA route (Mosaic tile facts): the plane is person-major
-  and a warp multiple wide (``ops/ksparse_kernel.PLANE_ALIGN``).
+  and a warp multiple wide (``ops/ksparse_kernel.PLANE_ALIGN``);
+- the flat padded layouts of the forward chunk (``_FlatForwardState``)
+  and the ``N % 128``, ``M % 8`` and ``N·M <= 1024²`` limits of its
+  kernel: the fused round kernel takes any shape whose state fits a
+  block's shared memory.
 """
 
 from __future__ import annotations
@@ -61,8 +79,16 @@ import torch
 
 from .cpu_reference import get_lib
 from .device import resolve_device
+from .ops.auction import (
+    KhoslaState,
+    forward_init,
+    forward_round,
+    khosla_round,
+)
+from .ops.dense import DenseProblem
+from .ops.dense_round import fused_dense_round_batch, kernel_fits
 from .ops.fr_big import fr_big_chunk
-from .ops.fr_dense import fr_init
+from .ops.fr_dense import fr_init, fr_round
 from .ops.fr_kernel import fr_chunk
 from .ops.ksparse_kernel import (
     PLANE_ALIGN,
@@ -150,13 +176,55 @@ class BatchSolution:
 
 
 class BatchedLAP:
-    """The JAX package's reusable fixed-shape batched solver; not ported
-    yet (ROADMAP.md §1 item 4)."""
+    """Reusable batched solver for a fixed ``(B, N, M)`` shape: set the
+    options once, then stream batches through :meth:`solve`."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "BatchedLAP is not ported yet (ROADMAP.md §1 item 4); call "
-            "solve_batch"
+    def __init__(
+        self,
+        batch: int,
+        num_rows: int,
+        num_cols: int,
+        solver: str = "forward",
+        dtype=np.float32,
+        maximize: bool = False,
+        eps: Optional[float] = None,
+        max_iterations: int = 100_000,
+        device=None,
+    ):
+        self.batch = batch
+        self.num_rows = num_rows
+        self.num_cols = num_cols
+        self.solver = solver
+        self.dtype = np.dtype(dtype)
+        self.maximize = maximize
+        self.eps = eps
+        self.max_iterations = max_iterations
+        self.device = device
+
+    def stage(self, costs) -> torch.Tensor:
+        """Copy ``costs`` to the device ahead of time (to overlap the
+        transfer with other work); pass the result as
+        ``costs_device``."""
+        return torch.from_numpy(
+            np.asarray(costs).astype(self.dtype)
+        ).to(resolve_device(self.device))
+
+    def solve(self, costs, costs_device=None) -> BatchSolution:
+        costs = np.asarray(costs)
+        expect = (self.batch, self.num_rows, self.num_cols)
+        if costs.shape != expect:
+            raise ValueError(
+                f"expected costs of shape {expect}, got {costs.shape}"
+            )
+        return solve_batch(
+            costs,
+            maximize=self.maximize,
+            solver=self.solver,
+            eps=self.eps,
+            dtype=self.dtype,
+            max_iterations=self.max_iterations,
+            costs_device=costs_device,
+            device=self.device,
         )
 
 
@@ -382,40 +450,285 @@ def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
 
 
 def _route(b, n, m, dtype, int_scale) -> str:
-    """``"big"`` or ``"fused"``, the JAX package's routing; raise for
-    every shape and type it sends to an engine not ported yet."""
-    if n != m:
-        raise NotImplementedError(
-            "rectangular instances (N < M) run the forward engine, which "
-            "is not ported yet (ROADMAP.md §1 item 7)"
-        )
+    """The FR engine's route for a square batch, the JAX package's
+    routing: ``"big"``, ``"fused"`` or ``"plain"`` (see the module
+    docstring)."""
+    f32 = np.dtype(dtype) == np.float32
     if (
         int_scale is None
-        and np.dtype(dtype) == np.float32
+        and f32
         and b <= _BIG_MAX_BATCH
         and n % 128 == 0
         and n * m > _BIG_MIN_ELEMS
     ):
         return "big"
-    if n * m > _FUSED_MAX_ELEMS:
-        raise NotImplementedError(
-            f"{b} x {n}x{m} {np.dtype(dtype).name} instances run the "
-            "XLA-rounds FR path (the big-single route takes float32, "
-            f"N % 128 == 0 and batches up to {_BIG_MAX_BATCH}), which is "
-            "not ported yet (ROADMAP.md §1 item 4)"
+    if (
+        (int_scale is not None or f32)
+        and n % 128 == 0
+        and m % 8 == 0
+        and n * m <= _FUSED_MAX_ELEMS
+    ):
+        return "fused"
+    return "plain"
+
+
+def _stage_values_t(costs_dev: torch.Tensor, negate: bool) -> torch.Tensor:
+    """Sign-adjust (internal convention: maximize profit) and transpose
+    to the contiguous object-major round layout ``[B, M, N]``."""
+    x = -costs_dev if negate else costs_dev
+    return x.transpose(1, 2).contiguous()
+
+
+# ----------------------------------------------------------------------
+# The plain-rounds FR route
+# ----------------------------------------------------------------------
+def _batch_chunk_fr(values_t, states, max_iterations: int, chunk: int):
+    """``chunk`` plain forward-reverse rounds of every instance.  The FR
+    engine starts at the target eps, so a full assignment is the
+    certificate and the per-round certificate passes are skipped."""
+    for _ in range(chunk):
+        states = fr_round(values_t, states, 0.0, 0.0, max_iterations,
+                          skip_certificate=True)
+    return states
+
+
+def _fr_compact(values_t, states, perm):
+    """Gather the instances ``perm`` into a smaller bucket."""
+    idx = torch.from_numpy(perm).to(values_t.device)
+    return values_t[idx], type(states)(*(x[idx] for x in states))
+
+
+def _solve_batch_fr_plain(
+    values_t, eps_val, max_iterations: int, native_tail: bool,
+    chunk: int = 32, min_bucket: int = 32,
+    tail_count: Optional[int] = None, tail_rounds: int = 96,
+):
+    """Forward-reverse batch solve on the plain rounds, with straggler
+    compaction and a cut for the native tail (the JAX package's
+    schedule, which the stragglers' ``nits`` depend on).
+
+    Lockstep rounds run until the slowest instance finishes, and the
+    round distribution is heavy-tailed.  So after each chunk (32 rounds,
+    128 once fewer than 128 instances are live) the batch is compacted
+    to the unfinished instances in power-of-two buckets of at least
+    ``min_bucket`` (finished results are saved on the host; filler slots
+    hold finished instances, whose rounds are no-ops).  With
+    ``native_tail``, once ``rounds >= tail_rounds`` and at most
+    ``tail_count`` (default: 16 per host core, at most 128) instances
+    are undone, the device rounds stop and the caller finishes those
+    instances on the native engine.
+
+    Returns ``(p2o [B, N], nits [B], tail [B] bool, rounds)`` on the
+    host: ``tail`` marks the instances left to the native engine."""
+    b, _, n = values_t.shape
+    if tail_count is None:
+        tail_count = min(128, 16 * (os.cpu_count() or 1))
+    states = fr_init(values_t, eps_val)
+    out_p2o = np.empty((b, n), np.int32)
+    out_nits = np.empty(b, np.int32)
+    tail = np.zeros(b, bool)
+    orig = np.arange(b)
+
+    def save_rows(rows):
+        out_p2o[orig[rows]] = states.p2o.cpu().numpy()[rows]
+        out_nits[orig[rows]] = states.nits.cpu().numpy()[rows]
+
+    cur_b = b
+    rounds = 0
+    while True:
+        level_chunk = chunk if cur_b >= 128 else 4 * chunk
+        states = _batch_chunk_fr(values_t, states, max_iterations,
+                                 level_chunk)
+        rounds += level_chunk
+        # one host sync per chunk: the done vector
+        done_mask = states.done.cpu().numpy()
+        undone = np.nonzero(~done_mask)[0]
+        trace_host("fr plain: rounds={} undone={}/{}", rounds, len(undone),
+                   cur_b)
+        if len(undone) == 0 or rounds >= max_iterations:
+            break
+        if native_tail and rounds >= tail_rounds and len(undone) <= tail_count:
+            tail[orig[undone]] = True
+            break
+        target_b = max(min_bucket, 1 << (len(undone) - 1).bit_length())
+        if target_b <= cur_b // 2:
+            fin = np.nonzero(done_mask)[0]
+            save_rows(fin)
+            pad = target_b - len(undone)
+            perm = np.concatenate([undone, fin[:pad]]) if pad else undone
+            orig = orig[perm]
+            values_t, states = _fr_compact(values_t, states, perm)
+            cur_b = target_b
+    save_rows(np.arange(cur_b))
+    return out_p2o, out_nits, tail, rounds
+
+
+# ----------------------------------------------------------------------
+# The forward and Khosla engines
+# ----------------------------------------------------------------------
+def _batch_chunk(values_t, states, eps, target_eps, toleration, thresholds,
+                 solver: str, max_iterations: int, chunk: int, n: int,
+                 m: int):
+    """``chunk`` plain rounds of every instance (``khosla_round`` or
+    ``forward_round`` with keep-valid pairs) and whether all instances
+    are finished, as a 0-d tensor."""
+    problem = DenseProblem(values_t)
+    if solver == "khosla":
+        for _ in range(chunk):
+            states = khosla_round(problem, states, eps, thresholds)
+        active = (states.p2o == UNASSIGNED) & ~states.dropped
+        alldone = (active.sum(dim=1) == 0).all() | (
+            states.nits >= max_iterations
+        ).all()
+        return states, alldone
+    for _ in range(chunk):
+        states = forward_round(problem, states, target_eps, toleration,
+                               n != m, max_iterations, keep_valid=True)
+    return states, states.done.all()
+
+
+def _batch_chunk_kernel(values_t, states, target_eps, toleration,
+                        max_iterations: int, chunk: int, sfoe: bool):
+    """Forward-auction chunk on the fused round kernel
+    (``ops/dense_round.py``): each round is one launch for the whole
+    batch, with only the per-instance eps-scaling bookkeeping in
+    PyTorch.  The returned state's ``o2p`` is stale by design:
+    keep-valid phases only ever write it, and the caller rebuilds it
+    from the final ``p2o``."""
+    dtype, dev = values_t.dtype, values_t.device
+    target = torch.as_tensor(target_eps, dtype=dtype, device=dev)
+    tol = torch.as_tensor(toleration, dtype=dtype, device=dev)
+    factor = torch.tensor(0.15, dtype=dtype, device=dev)
+    s = states
+    for _ in range(chunk):
+        prices, p2o, o2p, chosen, maxp = fused_dense_round_batch(
+            values_t, s.prices, s.p2o, s.o2p, s.eps, s.done
         )
-    if int_scale is None and np.dtype(dtype) != np.float32:
-        raise NotImplementedError(
-            f"{np.dtype(dtype).name} values run the XLA-rounds FR path, "
-            "which is not ported yet (ROADMAP.md §1 item 4)"
+        nits = s.nits + (~s.done).to(torch.int32)
+        num_unassigned = (p2o == UNASSIGNED).sum(dim=1)
+        fully = (num_unassigned == 0) & ~s.done
+        if sfoe:
+            is_optimal = torch.ones_like(fully)
+        else:
+            is_optimal = (chosen + tol >= maxp - target).all(dim=1)
+        stop = is_optimal | (s.eps < target)
+        reduce = fully & ~stop
+        eps = torch.where(reduce, s.eps * factor, s.eps)
+        # keep the pairs that satisfy eps-CS at the reduced eps
+        release = reduce[:, None] & ~(
+            (p2o != UNASSIGNED)
+            & (chosen + tol >= maxp - eps[:, None])
         )
-    if n % 128 or m % 8:
-        raise NotImplementedError(
-            f"{n}x{m} instances are off the fused kernel's tiling (N % 128 "
-            "== 0) and run the XLA-rounds FR path, which is not ported "
-            "yet (ROADMAP.md §1 item 4)"
+        s = type(s)(
+            prices=prices,
+            p2o=torch.where(release, UNASSIGNED, p2o),
+            o2p=o2p,
+            eps=eps,
+            nits=nits,
+            nreductions=s.nreductions + reduce.to(torch.int32),
+            optimal_found=s.optimal_found | (fully & is_optimal),
+            done=s.done | (fully & stop) | (nits >= max_iterations),
         )
-    return "fused"
+    return s, s.done.all()
+
+
+def _kernel_usable(solver: str, n: int, m: int, dtype) -> bool:
+    """Whether the forward chunk runs on the fused round kernel: the
+    forward solver in float32 with the instance's state within a block's
+    shared memory.  The shared memory alone decides the shape: the plane
+    stays in device memory, so the kernel has no ``N·M`` crossover to
+    the plain rounds and no tiling limit."""
+    return (
+        solver == "forward"
+        and np.dtype(dtype) == np.float32
+        and kernel_fits(n, m)
+    )
+
+
+def _solve_batch_dense(values_t, eps, target_eps, toleration, thresholds,
+                       solver: str, max_iterations: int, n: int, m: int,
+                       chunk: int = 64):
+    """The forward and Khosla engines on ``values_t [B, M, N]``: the
+    initial state, then ``chunk``-round chunks with one readback of
+    ``alldone`` a chunk, until every instance is finished or
+    ``max_iterations`` rounds were run.  ``thresholds [B]`` holds the
+    Khosla price thresholds, or the forward engine's start eps.
+    Returns ``(p2o [B, N], final_eps [B], nits [B])`` on the device."""
+    b = values_t.shape[0]
+    dtype, dev = values_t.dtype, values_t.device
+    np_dtype = _numpy_dtype(dtype)
+    eps = np_dtype.type(eps)
+    target_eps = np_dtype.type(target_eps)
+    toleration = np_dtype.type(toleration)
+    thresholds = torch.from_numpy(
+        np.asarray(thresholds).astype(np_dtype)
+    ).to(dev)
+
+    if solver == "khosla":
+        states = KhoslaState(
+            prices=torch.zeros((b, m), dtype=dtype, device=dev),
+            p2o=torch.full((b, n), UNASSIGNED, dtype=torch.int32,
+                           device=dev),
+            o2p=torch.full((b, m), UNASSIGNED, dtype=torch.int32,
+                           device=dev),
+            dropped=torch.zeros((b, n), dtype=torch.bool, device=dev),
+            nits=torch.zeros(b, dtype=torch.int32, device=dev),
+        )
+    else:
+        states = forward_init(values_t, thresholds)
+
+    use_kernel = _kernel_usable(solver, n, m, np_dtype)
+    rounds = 0
+    while True:
+        if use_kernel:
+            states, alldone = _batch_chunk_kernel(
+                values_t, states, target_eps, toleration, max_iterations,
+                chunk, n != m,
+            )
+        else:
+            states, alldone = _batch_chunk(
+                values_t, states, eps, target_eps, toleration, thresholds,
+                solver, max_iterations, chunk, n, m,
+            )
+        rounds += chunk
+        finished = bool(alldone)  # the blocking readback
+        trace_host("{}: rounds={} alldone={}", solver, rounds, finished)
+        if finished or rounds >= max_iterations:
+            break
+    if solver == "khosla":
+        final_eps = torch.full((b,), float(eps), dtype=dtype, device=dev)
+    else:
+        final_eps = states.eps
+    return states.p2o, final_eps, states.nits
+
+
+def _dense_engine_params(costs, solver: str, eps, n: int, m: int,
+                         start_eps_divisor: float):
+    """Host-side parameters of the forward and Khosla engines, from the
+    host costs: ``(eps_val, target_eps, toleration, thresholds [B])``.
+
+    Khosla: eps defaults to ``1/M`` and ``thresholds`` are the price
+    thresholds ``(M/2)(w_max - w_min + eps)`` of the drop rule.
+    Forward: the target eps defaults to ``1/N``; ``thresholds`` holds
+    the start eps, ``C / start_eps_divisor`` on square instances (the
+    reference crate starts at ``C/2``; a smaller start converges in
+    fewer Jacobi rounds, and keep-valid pairs make later phases cheap)
+    and the target itself on ``N < M``, where eps-scaling is unsound;
+    the toleration is ``2^(floor(log2 C) - 53)``.  The value span and
+    ``C = max |cost|`` are those of the sign-adjusted values too, so no
+    negated copy of the costs is made."""
+    flat = costs.reshape(costs.shape[0], -1)
+    if solver == "khosla":
+        eps_val = float(eps) if eps is not None else 1.0 / m
+        w_span = flat.max(axis=1) - flat.min(axis=1)
+        return eps_val, 0.0, 0.0, (m / 2.0) * (w_span + eps_val)
+    eps_val = float(eps) if eps is not None else 1.0 / n
+    c = np.maximum(flat.max(axis=1), -flat.min(axis=1))  # max |cost|
+    thresholds = np.where(n == m, c / start_eps_divisor, eps_val)
+    toleration = float(
+        2.0 ** (max(0, int(np.log2(float(c.max()) + 1e-7))) - 53)
+    )
+    return eps_val, eps_val, toleration, thresholds
 
 
 def solve_batch(
@@ -431,44 +744,46 @@ def solve_batch(
     max_cost: Optional[float] = None,
     device=None,
 ) -> BatchSolution:
-    """Solve a batch of dense square LAP instances ``costs[B, N, N]``.
+    """Solve a batch of dense LAP instances ``costs[B, N, M]`` (N <= M).
 
-    ``solver``: ``"auto"`` (resolves to ``"fr"``) or ``"fr"``, the
-    combined forward-reverse auction started at the target ε (default
-    ``1/N``), where a full assignment is the ε-CS certificate.
+    ``solver``: ``"auto"`` (resolves to ``"fr"``); ``"fr"``, the
+    combined forward-reverse auction started at the target eps (default
+    ``1/N``), where a full assignment is the eps-CS certificate, on
+    square instances, and the forward engine when ``N != M`` (reverse
+    bidding needs every object matchable); ``"forward"``, the Jacobi
+    forward auction with eps-scaling (target eps default ``1/N``, start
+    eps ``C / start_eps_divisor`` on square instances); ``"khosla"``
+    (eps default ``1/M``).  The module docstring says which route and
+    kernel serves which request.
 
-    Instances up to 1024² run batched on the fused route; float32
-    instances beyond it (N % 128 == 0, ``B <= 64``) run one after
-    another on the big-single route (see the module docstring).
+    ``dtype`` defaults to float32; use float64 when the cost range
+    demands it (an eps below about 1 ulp of the largest cost stalls in
+    float32).
 
     ``costs_device``: a tensor with the same contents as ``costs`` that
     already lies on a device.  **Device-resident mode**: pass
-    ``costs=None`` with only ``costs_device``; the objective is then
-    evaluated on that device, and stragglers stay on the device instead
-    of going to the native engine.
+    ``costs=None`` with only ``costs_device`` (``solver="fr"``, square
+    instances); the objective is then evaluated on that device, and
+    stragglers stay on the device instead of going to the native engine.
 
-    **Integer-auction mode** (``integer``): integer-valued costs run the
-    whole auction on the scaled-int32 lattice (``cost * D``, ε = 1 with
-    ``D = 1/ε``, default ``D = N + 1``), exactly optimal by
-    construction.  ``integer=None`` auto-detects on host costs;
-    ``integer=True`` opts device-resident costs in and requires
-    ``max_cost``; ``integer=False`` forces the float path.
-
-    ``start_eps_divisor`` belongs to the forward engine and is unused
-    on the FR path."""
+    **Integer-auction mode** (``integer``, the FR engine): integer-valued
+    costs run the whole auction on the scaled-int32 lattice
+    (``cost * D``, eps = 1 with ``D = 1/eps``, default ``D = N + 1``),
+    exactly optimal by construction.  ``integer=None`` auto-detects on
+    host costs; ``integer=True`` opts device-resident costs in and
+    requires ``max_cost``; ``integer=False`` forces the float path."""
     global LAST_TAIL_COUNT
-    del start_eps_divisor
     if solver == "auto":
         solver = "fr"
-    if solver in ("forward", "khosla"):
-        raise NotImplementedError(
-            f"solver={solver!r} is not ported yet (ROADMAP.md §1 item 7)"
-        )
-    if solver != "fr":
+    if solver not in ("fr", "forward", "khosla"):
         raise ValueError(f"unknown solver {solver!r}")
     if costs is None:
         if costs_device is None:
             raise ValueError("pass costs, costs_device, or both")
+        if solver != "fr":
+            raise ValueError(
+                "device-resident mode (costs=None) requires solver='fr'"
+            )
         b, n, m = costs_device.shape
     else:
         costs = np.asarray(costs)
@@ -479,9 +794,14 @@ def solve_batch(
         raise ValueError("num_rows must be <= num_cols")
     if costs is None and n != m:
         raise ValueError("device-resident mode requires square instances")
-    int_scale = _integer_scale(costs, eps, n, m, integer, max_cost)
-    route = _route(b, n, m, dtype, int_scale)
+    if solver == "fr" and n != m:
+        solver = "forward"
+    int_scale = (
+        _integer_scale(costs, eps, n, m, integer, max_cost)
+        if solver == "fr" else None
+    )
 
+    np_dtype = np.dtype(dtype)
     tdtype = _torch_dtype(dtype)
     if costs_device is not None:
         if costs is not None and tuple(costs_device.shape) != costs.shape:
@@ -492,63 +812,98 @@ def solve_batch(
             )
         costs_dev = costs_device.to(tdtype)
     else:
-        costs_dev = torch.from_numpy(costs.astype(dtype)).to(
-            resolve_device(device)
-        )
-    if int_scale is not None:
-        trace_host("solve_batch: integer-auction mode, scale={}", int_scale)
-        eps_val = 1  # lattice ε; original units: 1 / int_scale
-        final_eps = 1.0 / int_scale
-    else:
-        eps_val = float(eps) if eps is not None else 1.0 / n
-        final_eps = float(np.float32(eps_val))
+        # no host copy when the costs already have the solve's type
+        host = np.ascontiguousarray(costs, dtype=dtype)
+        if not host.flags.writeable:
+            host = host.copy()
+        costs_dev = torch.from_numpy(host).to(resolve_device(device))
+        del host
 
-    if route == "big":
-        p2o_dev, nits_dev, done = _fr_big_solve(
-            costs_dev, not maximize, eps_val, max_iterations
+    p2o_dev = work = tail = tail_nits = None
+    if solver != "fr":
+        eps_val, target_eps, toleration, thresholds = _dense_engine_params(
+            costs, solver, eps, n, m, start_eps_divisor
         )
-        tail = ~done.cpu().numpy()
+        p2o_dev, eps_dev, nits_dev = _solve_batch_dense(
+            _stage_values_t(costs_dev, not maximize), eps_val, target_eps,
+            toleration, thresholds, solver, int(max_iterations), n, m,
+        )
+        p2o = p2o_dev.cpu().numpy()
+        nits = nits_dev.cpu().numpy()
+        final_eps = eps_dev.cpu().numpy().astype(np.float64)
     else:
-        rounds = _fr_fused_schedule(b, n, max_iterations)
-        values_t, work, states = _fr_dispatch(
-            costs_dev, not maximize, int_scale, eps_val, rounds
-        )
-        states, rounds, LAST_TAIL_COUNT = _fr_continue(
-            values_t, work, states, rounds, max_iterations,
-            tail_cut=_TAIL_CUT if costs is not None else 0,
-        )
-        p2o_dev, nits_dev = states.p2o, states.nits
-        # the fused route finishes stragglers natively only within the
-        # round budget, and reports the device rounds spent as their nits
-        tail = ~states.done.cpu().numpy() & (rounds < max_iterations)
-    p2o = p2o_dev.cpu().numpy()
-    nits = nits_dev.cpu().numpy()
-    if costs is not None and tail.any():
-        _native_tail(costs, maximize, final_eps, max_iterations,
-                     np.nonzero(tail)[0], p2o)
-        if route == "fused":
-            nits[tail] = rounds
+        if int_scale is not None:
+            trace_host("solve_batch: integer-auction mode, scale={}",
+                       int_scale)
+            eps_val = 1  # lattice eps; original units: 1 / int_scale
+            tail_eps = 1.0 / int_scale
+        else:
+            eps_val = float(eps) if eps is not None else 1.0 / n
+            tail_eps = float(np_dtype.type(eps_val))
+        final_eps = np.full(b, tail_eps)
+        route = _route(b, n, m, dtype, int_scale)
+        if route == "plain":
+            p2o, nits, tail, tail_nits = _solve_batch_fr_plain(
+                _stage_values_t(costs_dev, not maximize), eps_val,
+                int(max_iterations), native_tail=costs is not None,
+            )
+        elif route == "big":
+            p2o_dev, nits_dev, done = _fr_big_solve(
+                costs_dev, not maximize, eps_val, max_iterations
+            )
+            tail = ~done.cpu().numpy()
+        else:
+            rounds = _fr_fused_schedule(b, n, max_iterations)
+            values_t, work, states = _fr_dispatch(
+                costs_dev, not maximize, int_scale, eps_val, rounds
+            )
+            states, rounds, LAST_TAIL_COUNT = _fr_continue(
+                values_t, work, states, rounds, max_iterations,
+                tail_cut=_TAIL_CUT if costs is not None else 0,
+            )
+            p2o_dev, nits_dev = states.p2o, states.nits
+            # the fused route finishes stragglers natively only within
+            # the round budget, and reports the device rounds spent as
+            # their nits (as the plain route does)
+            tail = ~states.done.cpu().numpy() & (rounds < max_iterations)
+            tail_nits = rounds
+        if p2o_dev is not None:
+            p2o = p2o_dev.cpu().numpy()
+            nits = nits_dev.cpu().numpy()
+        if costs is not None and tail.any():
+            _native_tail(costs, maximize, tail_eps, max_iterations,
+                         np.nonzero(tail)[0], p2o)
+            if tail_nits is not None:
+                nits[tail] = tail_nits
     assigned = p2o != UNASSIGNED
-    if costs is None and int_scale is None:
-        # the costs themselves: the staged values are only their negation
-        objective = _device_objective(costs_dev, p2o_dev, False)
-        objective = objective.cpu().numpy()
-    elif costs is None:
-        objective = _device_objective(work, p2o_dev, not maximize)
-        # the summands are original integers times the scale: exact
-        objective = objective.cpu().numpy() / int_scale
+    if costs is None:
+        if p2o_dev is None:
+            p2o_dev = torch.from_numpy(p2o).to(costs_dev.device)
+        if int_scale is None:
+            # the costs themselves: the staged values are only their
+            # negation
+            objective = _device_objective(costs_dev, p2o_dev, False)
+            objective = objective.cpu().numpy()
+        else:
+            objective = _device_objective(work, p2o_dev, not maximize)
+            # the summands are original integers times the scale: exact
+            objective = objective.cpu().numpy() / int_scale
     else:
         safe = np.where(assigned, p2o, 0)
+        # widened after the pick: the same float64 numbers without a
+        # float64 copy of the whole batch
         picked = np.take_along_axis(
-            costs.astype(np.float64, copy=False), safe[:, :, None], axis=2
-        )[:, :, 0]
+            costs, safe[:, :, None], axis=2
+        )[:, :, 0].astype(np.float64)
         objective = np.where(assigned, picked, 0.0).sum(axis=1)
     return BatchSolution(
         person_to_object=p2o,
+        # rebuilt from the final matching: keep-valid phases of the
+        # forward engine leave the rounds' o2p stale by design
         object_to_person=o2p_from_p2o(p2o, m),
         num_unassigned=(~assigned).sum(axis=1).astype(np.int32),
         objective=objective,
-        eps=np.full(b, final_eps),
+        eps=final_eps,
         nits=nits,
     )
 
@@ -590,8 +945,8 @@ def solve_batch_stream(
         and n * m <= _FUSED_MAX_ELEMS
     )
     if not fused_ok:
-        # the JAX package's sequential fallback; solve_batch raises for
-        # the routes the port has not taken over yet
+        # off the fused route: sequential device-resident solve_batch
+        # calls (the big-single or the plain-rounds route)
         return [
             solve_batch(
                 None, maximize=maximize, solver="fr", eps=eps, dtype=dtype,
@@ -659,37 +1014,46 @@ def solve_batch_stream(
 def linear_sum_assignment(cost_matrix, maximize: bool = False,
                           eps: Optional[float] = None,
                           dtype=np.float32, device=None):
-    """``scipy.optimize.linear_sum_assignment`` for square matrices over
-    the FR engine.  Returns ``(row_ind, col_ind)`` with ``row_ind``
-    sorted.  With integer costs the default ``eps = 1/(n+1)`` makes the
-    result exactly optimal; with float costs it is within ``n·eps`` of
-    the optimum.  Rectangular matrices wait for the forward engine
-    (ROADMAP.md §1 item 7)."""
+    """``scipy.optimize.linear_sum_assignment`` over the auto-routed
+    dense engines.  Returns ``(row_ind, col_ind)`` with ``row_ind``
+    sorted, as scipy does: ``cost_matrix[row_ind, col_ind].sum()`` is
+    the matching's objective.  Rectangular matrices are supported in
+    both orientations (a tall matrix is solved transposed).
+
+    With integer costs the default ``eps = 1/(min(n, m) + 1)`` makes the
+    result exactly optimal; with float costs it is within
+    ``min(n, m)·eps`` of the optimum (pass a smaller ``eps`` or
+    ``dtype=np.float64`` to tighten).  Entries must be finite: missing
+    arcs belong to the sparse solvers."""
     c = np.asarray(cost_matrix)
     if c.ndim != 2:
         raise ValueError("expected a 2-D cost matrix")
     if not np.isfinite(c).all():
-        raise ValueError("matrix contains non-finite entries")
+        raise ValueError(
+            "matrix contains non-finite entries; use solve_batch_sparse "
+            "for instances with missing arcs"
+        )
     n, m = c.shape
     if n == 0 or m == 0:
         return (np.empty(0, dtype=np.intp),) * 2
-    if n != m:
-        raise NotImplementedError(
-            "rectangular matrices run the forward engine, which is not "
-            "ported yet (ROADMAP.md §1 item 7)"
-        )
+    transposed = n > m
+    work = np.ascontiguousarray(c.T) if transposed else c
     if eps is None:
-        eps = 1.0 / (n + 1)
+        eps = 1.0 / (work.shape[0] + 1)
     # entries past the f32 mantissa would be quantized before the
-    # auction runs: the JAX package promotes them to float64
+    # auction runs: promote to float64
     if np.dtype(dtype) == np.float32 and float(np.abs(c).max()) >= 2.0**24:
         dtype = np.float64
-    sol = solve_batch(c[None], maximize=maximize, eps=eps, dtype=dtype,
+    sol = solve_batch(work[None], maximize=maximize, eps=eps, dtype=dtype,
                       device=device)
     if int(sol.num_unassigned[0]) != 0:  # pragma: no cover - finite
         raise ValueError("cost matrix is infeasible")
-    return (np.arange(n, dtype=np.intp),
-            sol.person_to_object[0].astype(np.intp))
+    p2o = sol.person_to_object[0].astype(np.intp)
+    rows = np.arange(work.shape[0], dtype=np.intp)
+    if transposed:
+        order = np.argsort(p2o)
+        return p2o[order], rows[order]
+    return rows, p2o
 
 
 # ----------------------------------------------------------------------

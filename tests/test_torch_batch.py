@@ -212,30 +212,65 @@ def test_value_error_probes():
                                  torch.zeros((2, N, N))])
 
 
+def _rect(c):
+    """[B, 128, 256] integer costs made from the square ones."""
+    return np.concatenate([c, c[:, ::-1, ::-1] + 7.0], axis=2)
+
+
+def _beyond_fused(c):
+    """One float64 [1, 256, 256] instance: beyond the fused kernel's
+    size limit as the test shrinks it."""
+    top = np.concatenate([c[0], c[1] + 3.0], axis=1)
+    return np.concatenate([top, top[::-1, ::-1] + 11.0], axis=0)[None]
+
+
 @pytest.mark.parametrize(
-    "call, item",
+    "call, matrices",
     [
         (lambda c: port.solve_batch(c, solver="forward", device="cpu"),
-         "item 7"),
+         lambda c: c),
         (lambda c: port.solve_batch(c, solver="khosla", device="cpu"),
-         "item 7"),
-        (lambda c: port.solve_batch(np.zeros((1, 128, 256)),
-                                    device="cpu"), "item 7"),
-        (lambda c: port.linear_sum_assignment(np.zeros((128, 256)),
-                                              device="cpu"), "item 7"),
-        (lambda c: port.solve_batch(np.zeros((1, 1152, 1152)),
-                                    dtype=np.float64, device="cpu"),
-         "item 4"),
+         lambda c: c),
+        (lambda c: port.solve_batch(_rect(c), device="cpu"), _rect),
+        (lambda c: port.linear_sum_assignment(_rect(c)[0], device="cpu"),
+         lambda c: _rect(c)[:1]),
+        (lambda c: port.solve_batch(_beyond_fused(c), dtype=np.float64,
+                                    device="cpu"), _beyond_fused),
         (lambda c: port.solve_batch(c + 0.5, dtype=np.float64,
-                                    device="cpu"), "item 4"),
+                                    device="cpu"), lambda c: c + 0.5),
         (lambda c: port.solve_batch(c[:, :5, :5], device="cpu"),
-         "item 4"),
-        (lambda c: port.BatchedLAP(3, N, N), "item 4"),
+         lambda c: c[:, :5, :5]),
+        (lambda c: port.BatchedLAP(3, N, N, device="cpu").solve(c),
+         lambda c: c),
     ],
+    ids=["forward", "khosla", "rect-128x256", "lsa-128x256",
+         "f64-beyond-fused-size", "f64", "off-tile-5x5", "BatchedLAP"],
 )
-def test_out_of_slice_requests_raise(call, item):
-    with pytest.raises(NotImplementedError, match=item):
-        call(_costs(49, True))
+def test_out_of_slice_requests_raise(call, matrices, monkeypatch):
+    """The requests that the port's first versions refused with
+    ``NotImplementedError`` (the forward and Khosla engines,
+    rectangular instances, float64 values, shapes off the fused kernel's
+    tiling, sizes beyond it, ``BatchedLAP``): each one is solved now,
+    with nobody unassigned and an objective within ``n * eps`` above
+    scipy's optimum (equal to it where eps < 1/n)."""
+    from sparse_linear_assignment_tpu_torch import batch
+
+    # a 256 x 256 instance then lies beyond the fused kernel's size
+    monkeypatch.setattr(batch, "_FUSED_MAX_ELEMS", 128 * 128)
+    monkeypatch.setattr(batch, "_BIG_MIN_ELEMS", 128 * 128)
+    costs = _costs(49, True)
+    out = call(costs)
+    mats = matrices(costs)
+    want = np.array([mat[scipy_lsa(mat)].sum() for mat in mats])
+    if isinstance(out, tuple):  # linear_sum_assignment: eps = 1/(n+1)
+        assert mats[0][out].sum() == want[0]
+        return
+    assert int(out.num_unassigned.sum()) == 0
+    n = mats.shape[1]
+    assert np.all(out.objective >= want)
+    assert np.all(out.objective <= want + n * out.eps + 1e-6)
+    if np.all(n * out.eps < 1):  # the integer lattice: exact
+        np.testing.assert_array_equal(out.objective, want)
 
 
 def test_default_device_without_cuda_raises():
