@@ -12,7 +12,7 @@ drives the port's paths through ``solve_batch``:
   4096 instances of 256x256 with integer costs in [1, 1000) on the
   int32 lattice: full matchings, a dual certificate of exact optimality
   for every instance, scipy's objective on a sample;
-- big dense singles on the multi-CTA kernel: one 4096x4096 instance
+- big dense singles on the cluster kernel: one 4096x4096 instance
   (scipy's objective) and one 8192x8192 instance made on the card (a
   float64 price certificate);
 - the native straggler tail of the host-costs branch (scipy's
@@ -51,6 +51,7 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 SEED = 20261016
+T_START = time.perf_counter()
 
 #: H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -58,6 +59,10 @@ F32_OPS_PER_S = 67e12
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase line also gets the script's elapsed
+    seconds at its end (``t_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -211,42 +216,79 @@ def phase_breakdown(batch, fr_kernel, fr_init, costs, scale, rounds,
           "kernel_share_of_sum": t["kernel_ms"] / total})
 
 
-def phase_big_kernel_vs_plain(fr_big, fr_init):
-    """The multi-CTA kernel against its plain version, bit for bit, on
-    every FRState field and the bidder-row counts, after 7, 40 and 400
-    rounds and at done."""
+def phase_big_kernel_vs_plain(batch, fr_big, fr_init):
+    """The cluster kernel against its plain version, bit for bit, on
+    every FRState field and the bidder-row counts: on 2048² (costs in
+    [1, 1000) and in [1, 8)) and 1152² after 7, 40 and 400 rounds and at
+    done; on 2048² with every cost equal (the sliced merge's worst ties)
+    after 7, 40 and 400 rounds, then on to done on the kernel alone
+    (34,770 rounds, too many for the plain version in the time limit) and
+    its price certificate; on the 4096² instance of the big-single phase
+    after 1, 2 and 3 rounds (the wide opening) and at done.  Returns the
+    4096² plain run: its time, final state and bidder rows."""
+    from sparse_linear_assignment_tpu_torch.solution import UNASSIGNED
+
     gen = torch.Generator(device="cuda")
     cases = []
-    for n, hi in ((2048, 1000), (2048, 8), (1152, 1000)):
+
+    def run(vt, work, eps, chunks, what, to_done=True):
+        got = want = fr_init(vt, eps)
+        rows_k = torch.zeros(1, dtype=torch.int64, device="cuda")
+        rows_p = torch.zeros(1, dtype=torch.int64, device="cuda")
+        total, plain_ms = 0, 0.0
+        for chunk in chunks:
+            got, _ = fr_big.fr_big_chunk(vt, got, chunk, values=work,
+                                         bid_rows=rows_k)
+            ms, (want, _) = sync_ms(lambda: fr_big.fr_big_chunk_reference(
+                vt, want, chunk, bid_rows=rows_p))
+            plain_ms += ms
+            total += chunk
+            bad, _ = states_equal(got, want)
+            if not torch.equal(rows_k, rows_p):
+                bad.append("bid_rows")
+            assert not bad, (what, total, bad)
+            if bool(got.done[0]):
+                break
+        compared = int(got.nits[0])
+        if not to_done:
+            got, _ = fr_big.fr_big_chunk(vt, got, 100_000, values=work,
+                                         bid_rows=rows_k)
+            certify_prices(work, got, eps, 1e-3)
+        assert bool(got.done[0]), (what, "not done", total)
+        assert int((got.p2o == UNASSIGNED).sum()) == 0, what
+        cases.append({"case": what, "n": vt.shape[1],
+                      "nits": int(got.nits[0]), "compared_nits": compared,
+                      "bid_rows": int(rows_k[0])})
+        return {"plain_ms": plain_ms, "state": want,
+                "bid_rows": int(rows_p[0])}
+
+    for n, hi in ((2048, 1000), (2048, 8), (2048, 2), (1152, 1000)):
         gen.manual_seed(SEED + n + hi)
         costs = torch.randint(1, hi, (1, n, n), generator=gen,
                               device="cuda", dtype=torch.int32).float()
         work = (-costs).contiguous()
         vt = work.transpose(1, 2).contiguous()
-        got = want = fr_init(vt, 1.0 / (n + 1))
-        rows_k = torch.zeros(1, dtype=torch.int64, device="cuda")
-        rows_p = torch.zeros(1, dtype=torch.int64, device="cuda")
-        total = 0
-        for chunk in [7, 33, 360] + [4000] * 25:
-            got, _ = fr_big.fr_big_chunk(vt, got, chunk, values=work,
-                                         bid_rows=rows_k)
-            want, _ = fr_big.fr_big_chunk_reference(vt, want, chunk,
-                                                    bid_rows=rows_p)
-            total += chunk
-            bad, _ = states_equal(got, want)
-            if not torch.equal(rows_k, rows_p):
-                bad.append("bid_rows")
-            assert not bad, (n, hi, total, bad)
-            if bool(got.done[0]):
-                break
-        assert bool(got.done[0]), (n, hi, "not done", total)
-        cases.append({"n": n, "costs_hi": hi, "nits": int(got.nits[0]),
-                      "bid_rows": int(rows_k[0])})
+        if hi == 2:
+            run(vt, work, 1.0 / (n + 1), [7, 33, 360], "all costs equal",
+                to_done=False)
+        else:
+            run(vt, work, 1.0 / (n + 1), [7, 33, 360, 100_000],
+                f"costs in [1, {hi})")
+        del costs, work, vt
+    n = 4096
+    rng = np.random.default_rng(SEED)
+    dev = torch.from_numpy(
+        rng.integers(1, 1000, size=(1, n, n)).astype(np.float32)).cuda()
+    vt, work = batch._stage(dev, True, None)
+    plain = run(vt, work, 1.0 / (n + 1), [1, 1, 1, 100_000],
+                "the big-single 4096² instance")
     emit({"phase": "big_kernel_vs_plain", "kernel": "fr_big_kernel",
-          "checkpoints": "after 7, 40, 400 rounds, then every 4000 to "
-                         "done", "cases": cases, "tolerance": 0,
-          "max_abs_err": 0.0,
+          "checkpoints": "after 7, 40, 400 rounds and at done (all "
+                         "costs equal: a price certificate at done); "
+                         "4096²: after 1, 2, 3 rounds and at done",
+          "cases": cases, "tolerance": 0, "max_abs_err": 0.0,
           "fields": "all FRState fields + bid_rows, bit-exact"})
+    return plain
 
 
 def certify_prices(work, st, eps, slack):
@@ -312,23 +354,46 @@ def phase_big_single(port, batch, fr_big, fr_kernel, fr_init, scipy_lsa):
     wall8, sol8 = sync_ms(lambda: port.solve_batch(
         None, costs_device=c8, eps=eps8, dtype=np.float32))
     assert int(sol8.num_unassigned[0]) == 0, "unassigned persons at 8192²"
-    # the same deterministic solve through the kernel, for its prices
+    # the same deterministic solve through the kernel in one launch, for
+    # its prices, its time and its phase counters
     vt8, work8 = batch._stage(c8, True, None)
-    st = fr_init(vt8, eps8)
-    while not bool(st.done[0]):
-        st, _ = fr_big.fr_big_chunk(vt8, st, 2 * n8, values=work8)
+    s8 = fr_init(vt8, eps8)
+    cyc8 = torch.zeros(len(fr_big.PHASES), dtype=torch.int64, device="cuda")
+    st, done8 = fr_big.fr_big_chunk(vt8, s8, 100_000, values=work8,
+                                    phase_cycles=cyc8)
+    assert bool(done8)
     assert np.array_equal(st.p2o.cpu().numpy(), sol8.person_to_object)
     slack = 1e-3
     worst = certify_prices(work8, st, eps8, slack)
+    nits8 = int(st.nits[0])
+    ms8 = event_ms(lambda: fr_big.fr_big_chunk(vt8, s8, 100_000,
+                                               values=work8), reps=3)
+    k8 = {"n": n8, "nits": nits8, "ms": ms8,
+          "us_per_round": ms8 * 1e3 / nits8, **cycle_split(fr_big, cyc8)}
     emit({"phase": "big_single_8192", "n": n8,
           "costs": "integers in [1, 1000) made on the card",
           "eps": eps8, "wall_ms": wall8, "nits": int(sol8.nits[0]),
           "rounds_per_s": int(sol8.nits[0]) / (wall8 / 1e3),
           "objective": float(sol8.objective[0]),
           "certificate": "f64 chosen profit >= row max - eps - slack",
-          "slack": slack, "worst_shortfall": worst})
-    del c8, vt8, work8, st
-    return costs, dev, eps, launches, warm_ms
+          "slack": slack, "worst_shortfall": worst, "kernel_ms": ms8,
+          "kernel_us_per_round": k8["us_per_round"]})
+    del c8, vt8, work8, st, s8
+    return costs, dev, eps, launches, warm_ms, k8
+
+
+def cycle_split(fr_big, cyc):
+    """The kernel's phase counters as shares of the leader thread's round
+    cycles, the wide rounds and the cluster barriers a round."""
+    c = dict(zip(fr_big.PHASES, cyc.tolist()))
+    total = c["total"]
+    return {
+        "cycle_share": {k: c[k] / total for k in (
+            "rows", "merge_bid", "apply", "control", "barrier_wait")},
+        "cycles": c,
+        "wide_rounds": c["wide_rounds"],
+        "wide_share": c["wide_cycles"] / total,
+    }
 
 
 def phase_big_breakdown(batch, fr_init, costs, dev, eps, warm_ms):
@@ -385,25 +450,54 @@ def phase_big_batch(port, scipy_lsa):
           "scipy_equal": b})
 
 
-def phase_big_kernel_time(batch, fr_big, fr_init, dev, eps):
+def phase_big_kernel_time(batch, fr_big, fr_init, dev, eps, plain, k8):
     """The 4096² solve's kernel alone: CUDA-event time of one launch
-    from the initial state to done, the plain version on the same
-    input for the same rounds, and the bound."""
+    from the initial state to done, bit-equal to the plain version's run
+    of ``phase_big_kernel_vs_plain`` (whose time it reports), the bound,
+    the phase counters, and a latency floor from the probe's measured
+    cluster barrier and dependent HBM load.  ``k8`` holds the same
+    figures of the 8192² launch."""
     n = dev.shape[1]
     vt, work = batch._stage(dev, True, None)
     s0 = fr_init(vt, eps)
     budget = 100_000
     rows = torch.zeros(1, dtype=torch.int64, device="cuda")
+    cyc = torch.zeros(len(fr_big.PHASES), dtype=torch.int64, device="cuda")
     got, done = fr_big.fr_big_chunk(vt, s0, budget, values=work,
-                                    bid_rows=rows)
+                                    bid_rows=rows, phase_cycles=cyc)
     assert bool(done)
     nits, bid_rows = int(got.nits[0]), int(rows[0])
     kernel_ms = event_ms(
         lambda: fr_big.fr_big_chunk(vt, s0, budget, values=work), reps=5)
-    plain_ms, (want, _) = sync_ms(
-        lambda: fr_big.fr_big_chunk_reference(vt, s0, nits))
-    bad, err = states_equal(got, want)
-    assert not bad, ("big kernel at 4096²", bad)
+    bad, err = states_equal(got, plain["state"])
+    assert not bad and bid_rows == plain["bid_rows"], ("big 4096²", bad)
+    pl = fr_big.plan(n)
+    # a cluster barrier of the kernel's shape and a dependent load that
+    # misses L2 (a 1 GiB chain, 16 MB strides)
+    links = 1 << 28
+    chain = torch.remainder(
+        torch.arange(links, dtype=torch.int32, device="cuda") + 4_194_319,
+        links).to(torch.int32)
+    pr = fr_big.probe(chain, 2000, pl.cluster)
+    del chain
+    assert pr["dsmem_cas_max64_atomic"], pr
+    barrier_ns, load_ns = pr["cluster_barrier_ns"], pr["hbm_load_ns"]
+    split = cycle_split(fr_big, cyc)
+    figures = {}
+    for size, ms, rounds, sp in ((n, kernel_ms, nits, split),
+                                 (k8["n"], k8["ms"], k8["nits"], k8)):
+        per_round = sp["cycles"]["barriers"] / rounds
+        floor_ms = rounds * (barrier_ns * per_round + load_ns) / 1e6
+        figures[str(size)] = {
+            "ms": ms, "nits": rounds, "us_per_round": ms * 1e3 / rounds,
+            "barriers_per_round": per_round,
+            "latency_floor_ms": floor_ms,
+            "us_per_round_by_phase": {
+                k: v * ms * 1e3 / rounds
+                for k, v in sp["cycle_share"].items()},
+            "cycle_share": sp["cycle_share"],
+            "wide_rounds": sp["wide_rounds"],
+            "wide_share_of_time": sp["wide_share"]}
     elem = vt.element_size()
     state_bytes = 2 * 4 * n * 4              # prices, profits, p2o, o2p
     bytes_once = n * n * elem + state_bytes  # one layout + the state
@@ -413,16 +507,25 @@ def phase_big_kernel_time(batch, fr_big, fr_init, dev, eps):
     bound_ms = max(bound_bytes_ms, bound_ops_ms)
     bound_by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
     row_bytes = bid_rows * n * elem
+    plain_ms = plain["plain_ms"]
     emit({"phase": "big_kernel_time", "n": n, "dtype": "float32",
+          "cluster": pl.cluster, "plan": pl._asdict(),
           "nits": nits, "ms": kernel_ms, "us_per_round": kernel_ms * 1e3 /
           nits, "plain_ms": plain_ms, "plain_rounds": nits,
           "plain_ms_per_round": plain_ms / nits, "bound_ms": bound_ms,
           "bound_by": bound_by, "bytes_once": bytes_once,
           "bid_rows": bid_rows, "bidder_row_bytes": row_bytes,
           "bidder_row_bound_ms": row_bytes / HBM_BYTES_PER_S * 1e3,
-          "library_ms": None, "plain_bit_exact": True})
+          **pr,
+          "latency_floor": "rounds x (cluster barrier x barriers a round "
+                           "+ one dependent HBM load)",
+          "by_size": figures, "library_ms": None, "plain_bit_exact": True})
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_err": err}
+            "bound_by": bound_by, "max_abs_err": err, "cluster": pl.cluster,
+            "us_per_round": kernel_ms * 1e3 / nits,
+            "latency_floor_ms": figures[str(n)]["latency_floor_ms"],
+            "ms_8192": k8["ms"],
+            "us_per_round_8192": k8["us_per_round"]}
 
 
 def phase_native_tail(port, batch, scipy_lsa):
@@ -1165,7 +1268,6 @@ def phase_dense_round_time(dr, forward_init):
 
 
 def main() -> int:
-    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "script needs one CUDA GPU", file=sys.stderr)
@@ -1215,7 +1317,7 @@ def main() -> int:
 
     # 2. kernels vs plain versions on the card
     max_err = phase_kernel_vs_plain(fr_kernel, fr_init)
-    phase_big_kernel_vs_plain(fr_big, fr_init)
+    big_plain = phase_big_kernel_vs_plain(batch, fr_big, fr_init)
     phase_ksp_kernel_vs_plain(port, batch, ksp)
     dr_err = phase_dense_round_vs_plain(batch, dr, forward_init)
 
@@ -1347,11 +1449,13 @@ def main() -> int:
 
     del batches, res, costs
 
-    # 7. big dense singles on the multi-CTA kernel
-    bcosts, bdev, beps, big_launches, big_warm_ms = phase_big_single(
+    # 7. big dense singles on the cluster kernel
+    bcosts, bdev, beps, big_launches, big_warm_ms, k8 = phase_big_single(
         port, batch, fr_big, fr_kernel, fr_init, scipy_lsa)
     phase_big_breakdown(batch, fr_init, bcosts, bdev, beps, big_warm_ms)
-    big = phase_big_kernel_time(batch, fr_big, fr_init, bdev, beps)
+    big = phase_big_kernel_time(batch, fr_big, fr_init, bdev, beps,
+                                big_plain, k8)
+    del big_plain
     del bcosts, bdev
     phase_big_batch(port, scipy_lsa)
 
@@ -1379,7 +1483,7 @@ def main() -> int:
     drt = phase_dense_round_time(dr, forward_init)
 
     # 11. the run's total and the kernels line
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     emit({"kernels": [{
         "name": "fr_kernel",
         "route": "cuda",
@@ -1406,6 +1510,11 @@ def main() -> int:
         "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"],
         "library_ms": None,
+        "cluster": big["cluster"],
+        "us_per_round": big["us_per_round"],
+        "latency_floor_ms": big["latency_floor_ms"],
+        "ms_8192": big["ms_8192"],
+        "us_per_round_8192": big["us_per_round_8192"],
     }, {
         "name": "ksp_kernel",
         "route": "cuda",

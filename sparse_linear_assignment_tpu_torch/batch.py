@@ -15,7 +15,7 @@ instances on three routes:
   costs keep them on the device;
 - **big single**: float32 instances beyond ``_BIG_MIN_ELEMS`` with
   N % 128 == 0, in batches of at most 64, run one instance after
-  another on the multi-CTA kernel (``ops/fr_big.py``); an instance
+  another on the cluster kernel (``ops/fr_big.py``); an instance
   still undone at ``max_iterations`` is finished on the native engine
   when host costs are given;
 - **plain rounds**: every other square request (float64 and other float

@@ -1,6 +1,7 @@
-// Pieces shared by the forward-reverse auction kernels (fr_kernel.cu,
-// fr_big_kernel.cu): the sentinels, the order-preserving value images,
-// the float warp top-2 with its tie rule, and the 64-bit conflict key.
+// Pieces shared by the auction kernels (fr_kernel.cu, fr_big_kernel.cu,
+// ksp_kernel.cu): the sentinels, the order-preserving value images, the
+// float top-2 with its tie rule (a lane's running top-2, the warp merge,
+// the warp-wide top2), and the 64-bit conflict key.
 
 #pragma once
 
@@ -58,31 +59,22 @@ __device__ __forceinline__ int32_t key_bidder(unsigned long long key) {
   return static_cast<int32_t>(~static_cast<uint32_t>(key));
 }
 
-// Warp-wide top-2 of row[r] - rowp[r] over r < S.  Every lane returns
-// best, argbest (smallest index among the maxima) and second (the max over
-// every position except argbest), with has_second false when S == 1.
-// `rowp` is read with plain loads: in the multi-CTA kernel other CTAs
-// write it between grid barriers, so it must not take the read-only path.
-__device__ __forceinline__ void top2(const float* __restrict__ row,
-                                     const float* rowp, int S, int sh,
-                                     int lane, float& best, int& arg,
-                                     float& second, bool& has_second) {
-  (void)sh;
-  const float ninf = Traits<float>::neg_inf();
-  float b = ninf, s = ninf;
-  int j = kUnassigned;
-  for (int r = lane; r < S; r += 32) {
-    const float v = row[r] - rowp[r];
-    if (v > b) {
-      s = fmaxf(s, b);
-      b = v;
-      j = r;
-    } else {
-      s = fmaxf(s, v);
-    }
+// Running top-2 of one lane: a strict > on ascending positions keeps the
+// smallest index among equal maxima; an equal value lands in second.
+__device__ __forceinline__ void top2_take(float v, int r, float& b, float& s,
+                                          int& j) {
+  if (v > b) {
+    s = fmaxf(s, b);
+    b = v;
+    j = r;
+  } else {
+    s = fmaxf(s, v);
   }
-  // the exact merge of _top2_rows_f32: ties go to the smaller index, the
-  // other tied position's value lands in second via min(b1, b2)
+}
+
+// The exact merge of _top2_rows_f32 across a warp: ties go to the smaller
+// index, the other tied position's value lands in second via min(b1, b2).
+__device__ __forceinline__ void top2_warp_merge(float& b, float& s, int& j) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     const float b2 = __shfl_xor_sync(kFull, b, off);
@@ -93,6 +85,21 @@ __device__ __forceinline__ void top2(const float* __restrict__ row,
     b = take1 ? b : b2;
     j = take1 ? j : j2;
   }
+}
+
+// Warp-wide top-2 of row[r] - rowp[r] over r < S.  Every lane returns
+// best, argbest (smallest index among the maxima) and second (the max over
+// every position except argbest), with has_second false when S == 1.
+__device__ __forceinline__ void top2(const float* __restrict__ row,
+                                     const float* rowp, int S, int sh,
+                                     int lane, float& best, int& arg,
+                                     float& second, bool& has_second) {
+  (void)sh;
+  const float ninf = Traits<float>::neg_inf();
+  float b = ninf, s = ninf;
+  int j = kUnassigned;
+  for (int r = lane; r < S; r += 32) top2_take(row[r] - rowp[r], r, b, s, j);
+  top2_warp_merge(b, s, j);
   best = b;
   arg = j;
   second = s;

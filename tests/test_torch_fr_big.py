@@ -201,3 +201,54 @@ def test_big_single_round_limit_matches_jax(big_costs, monkeypatch,
     np.testing.assert_array_equal(got.nits, want.nits)
     np.testing.assert_allclose(got.objective, want.objective, rtol=0,
                                atol=1e-6)
+
+
+# The cluster kernel's launch shape, as the planner gives it to the
+# kernel: (cluster, slice width, bidders a warp step, partials a pass,
+# dynamic shared-memory bytes = 56 * width + 16 * pass_rows).
+@pytest.mark.parametrize("max_cluster,n,want", [
+    (16, 1152, (16, 72, 8, 1152, 22464)),
+    (16, 2048, (16, 128, 8, 2048, 39936)),
+    (16, 4096, (16, 256, 4, 4096, 79872)),
+    (16, 8192, (16, 512, 2, 8192, 159744)),
+    (16, 16384, (16, 1024, 1, 10880, 231424)),
+    (8, 1152, (8, 144, 4, 1152, 26496)),
+    (8, 2048, (8, 256, 4, 2048, 47104)),
+    (8, 4096, (8, 512, 2, 4096, 94208)),
+    (8, 8192, (8, 1024, 1, 8192, 188416)),
+    (8, 16384, (8, 2048, 1, 7296, 231424)),
+])
+def test_plan_pins_the_launch_shape(max_cluster, n, want):
+    got = fr_big.plan(n, max_cluster=max_cluster)
+    assert tuple(got) == want
+    assert got.cluster * got.width == n
+    assert got.smem_bytes + fr_big.STATIC_SMEM_BYTES <= fr_big.MAX_SMEM_BYTES
+    # a warp step keeps at most LOADS_IN_FLIGHT float4 loads a lane
+    loads = -(-got.width // 128)
+    assert got.rows_per_step == 1 or (
+        got.rows_per_step * loads <= fr_big.LOADS_IN_FLIGHT)
+
+
+@pytest.mark.parametrize("max_cluster", [8, 16])
+def test_plan_raises_beyond_the_shared_memory_limit(max_cluster):
+    with pytest.raises(ValueError, match="largest side is") as info:
+        fr_big.plan(131072, max_cluster=max_cluster)
+    largest = int(str(info.value).rsplit(" ", 1)[1])
+    assert largest >= 16384  # the JAX bench's largest big single fits
+    assert fr_big.plan(largest, max_cluster=max_cluster).pass_rows >= (
+        fr_big.MIN_PASS_ROWS)
+    with pytest.raises(ValueError, match="shared-memory limit"):
+        fr_big.plan(largest + 4 * max_cluster, max_cluster=max_cluster)
+    with pytest.raises(ValueError, match="multiple of"):
+        fr_big.plan(1000, max_cluster=max_cluster)
+    with pytest.raises(ValueError, match="at least 8"):
+        fr_big.plan(4096, max_cluster=4)
+
+
+def test_fr_big_chunk_phase_cycles_are_cuda_only():
+    n = 128
+    tv = torch.zeros((1, n, n), dtype=torch.float32)
+    with pytest.raises(ValueError, match="phase_cycles"):
+        fr_big.fr_big_chunk(tv, batch.fr_init(tv, 1.0 / n), 1,
+                            phase_cycles=torch.zeros(
+                                len(fr_big.PHASES), dtype=torch.int64))
