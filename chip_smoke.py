@@ -216,6 +216,33 @@ def phase_breakdown(batch, fr_kernel, fr_init, costs, scale, rounds,
           "kernel_share_of_sum": t["kernel_ms"] / total})
 
 
+def fr_kernel_split(fr_kernel, cyc, stamps, nits):
+    """The batched FR kernel's phase counters as shares of its CTAs'
+    round cycles, and its timeline from the CTAs' global-timer stamps:
+    when the last CTA started (the waves), when half and all had ended,
+    and the instance with the most rounds (the straggler)."""
+    c = dict(zip(fr_kernel.PHASES, cyc.tolist()))
+    st = stamps.cpu().numpy().astype(np.float64)
+    t0 = st[:, 0].min()
+    start = (st[:, 0] - t0) / 1e6
+    end = (st[:, 1] - t0) / 1e6
+    n = nits.cpu().numpy()
+    k = int(n.argmax())
+    return {
+        "cycle_share": {p: c[p] / c["total"] for p in (
+            "bids", "apply", "control", "barrier_wait")},
+        "cycles": c, "cycles_per_round": c["total"] / c["rounds"],
+        "timeline_ms": {"span": float(end.max()),
+                        "last_start": float(start.max()),
+                        "half_ended": float(np.median(end)),
+                        "straggler": {"nits": int(n[k]),
+                                      "start": float(start[k]),
+                                      "end": float(end[k])}},
+        "us_per_round_median": float(np.median(
+            (end - start) * 1e3 / np.maximum(n, 1))),
+    }
+
+
 def phase_big_kernel_vs_plain(batch, fr_big, fr_init):
     """The cluster kernel against its plain version, bit for bit, on
     every FRState field and the bidder-row counts: on 2048² (costs in
@@ -926,78 +953,131 @@ def round_outputs_differ(got, want):
             if a.dtype != b.dtype or not torch.equal(a, b)]
 
 
-def phase_dense_round_vs_plain(batch, dr, forward_init):
-    """The fused round kernel against its plain version, bit for bit,
-    in all five outputs: from the initial state and after 1, 2, 5 and 50
-    rounds of the forward chunk, as the state stands and with some
-    instances marked done and a per-instance eps; the single-instance
-    entry point against the batch one at B = 1."""
+FORWARD_FIELDS = ("prices", "p2o", "o2p", "eps", "nits", "nreductions",
+                  "optimal_found", "done")
+
+
+def forward_states_differ(a, b):
+    return [k for k in FORWARD_FIELDS
+            if not torch.equal(getattr(a, k), getattr(b, k))]
+
+
+def phase_dense_chunk_vs_plain(dr, forward_init):
+    """The forward chunk kernel against its plain version, bit for bit,
+    on every ForwardState field, ``alldone`` and the rows read, after 1,
+    2, 5 and 64 rounds and then every 64 to done: forward-rect at full
+    size, a square batch through its eps-reductions, forced done flags
+    with a per-instance eps, a ``max_iterations`` that ends inside a
+    chunk, a -inf plane with single-arc persons, and shapes off the
+    16-byte path.  At each checkpoint the single-round entry points
+    against their plain version: the round as the state stands and with
+    forced done flags and a per-instance eps, and ``fused_dense_round``
+    against the batch at B = 1."""
     gen = torch.Generator(device="cuda")
     cases = []
     worst = 0.0
-    for name, b, n, m, arcs in (
-        ("128x128", 32, 128, 128, 0),
-        ("256x256", 16, 256, 256, 0),
-        ("128x256", 32, 128, 256, 0),
-        ("128x8192", 4, 128, 8192, 0),
-        ("256x512", 32, 256, 512, 0),
+    for name, b, n, m, arcs, forced, max_it in (
+        ("forward-rect 4096 x (256 x 512)", 4096, 256, 512, 0, False,
+         100_000),
+        ("square 512 x 256², eps-scaling", 512, 256, 256, 0, False,
+         100_000),
+        ("square 64 x 256², forced done, per-instance eps", 64, 256, 256,
+         0, True, 100_000),
+        ("square 64 x 128², max_iterations 37", 64, 128, 128, 0, False,
+         37),
         ("-inf plane 128x512, 6 arcs a person, 8 single-arc persons",
-         16, 128, 512, 6),
-        ("24x40 off every tile", 8, 24, 40, 0),
+         16, 128, 512, 6, False, 100_000),
+        ("128x8192 wide rows", 8, 128, 8192, 0, False, 100_000),
+        ("24x40 off every tile", 32, 24, 40, 0, False, 100_000),
+        ("24x42 rows off 16 bytes", 32, 24, 42, 0, False, 100_000),
     ):
         gen.manual_seed(SEED + 7 * n + m)
-        vals = -torch.randint(1, 1000, (b, m, n), generator=gen,
+        vals = -torch.randint(1, 1000, (b, n, m), generator=gen,
                               device="cuda", dtype=torch.int32).float()
         if arcs:
-            keep = torch.rand((b, m, n), generator=gen,
-                              device="cuda").argsort(dim=1) < arcs
+            keep = torch.rand((b, n, m), generator=gen,
+                              device="cuda").argsort(dim=2) < arcs
             # persons 0..7 keep one arc each, to the object of their index
-            keep[:, :, :8] = False
+            keep[:, :8, :] = False
             keep[:, torch.arange(8), torch.arange(8)] = True
             vals = torch.where(keep, vals, float("-inf"))
-        target = 1.0 / (n + 1)
+        target = np.float32(1.0 / (n + 1))
         c = float(vals[torch.isfinite(vals)].abs().max())
-        st = forward_init(vals, c / 128.0 if n == m else target)
-        toleration = 2.0 ** (int(np.log2(c + 1e-7)) - 53)
-        at = 0
-        for upto in (0, 1, 2, 5, 50):
-            if upto > at:
-                st, _ = batch._batch_chunk_kernel(
-                    vals, st, target, toleration, 100_000, upto - at, n != m)
-                at = upto
-            # the state as it stands, then with forced done flags and a
-            # per-instance eps
-            done2 = st.done.clone()
-            done2[::3] = True
-            eps2 = st.eps * torch.linspace(0.5, 2.0, b, device="cuda")
-            for eps_b, done_b in ((st.eps, st.done), (eps2, done2)):
-                args = (vals, st.prices, st.p2o, st.o2p, eps_b, done_b)
-                got = dr.fused_dense_round_batch(*args)
-                torch.cuda.synchronize()
-                want = dr.fused_dense_round_batch_reference(*args)
-                bad = round_outputs_differ(got, want)
-                assert not bad, (name, upto, bad)
-                worst = max(worst, float(
-                    (got[0].double() - want[0].double()).abs().max()))
-            one = dr.fused_dense_round(
-                vals[1], st.prices[1], st.p2o[1], st.o2p[1],
-                float(st.eps[1]), bool(st.done[1]))
-            at_b1 = dr.fused_dense_round_batch(
-                vals[1:2], st.prices[1:2], st.p2o[1:2], st.o2p[1:2],
-                st.eps[1:2], st.done[1:2])
-            bad = round_outputs_differ(one, [x[0] for x in at_b1])
-            assert not bad, (name, upto, "single entry", bad)
-        cases.append({"case": name, "batch": b,
-                      "done_after_50": int(st.done.sum()),
-                      "eps_reductions": int(st.nreductions.sum()),
-                      "unassigned_after_50":
-                          int((st.p2o == 2**31 - 1).sum())})
-    emit({"phase": "dense_round_vs_plain", "kernel": "dense_round_kernel",
-          "checkpoints": "initial state, after 1, 2, 5, 50 rounds; each "
-                         "as it stands and with forced done flags and "
+        tol = np.float32(2.0 ** (int(np.log2(c + 1e-7)) - 53))
+        sfoe = n != m
+        vt = vals.transpose(1, 2)
+        st = forward_init(vt, c / 128.0 if n == m else float(target))
+        if forced:
+            done = st.done.clone()
+            done[::3] = True
+            st = st._replace(done=done, eps=st.eps * torch.linspace(
+                0.5, 2.0, b, device="cuda"))
+        got = want = st
+        rows_k = torch.zeros(b, dtype=torch.int64, device="cuda")
+        rows_p = torch.zeros(b, dtype=torch.int64, device="cuda")
+        total = 0
+        for chunk in (1, 1, 3, 59) + (64,) * 40:
+            got, gdone = dr.fused_dense_chunk(vals, got, target, tol, max_it,
+                                              chunk, sfoe, rows=rows_k)
+            torch.cuda.synchronize()
+            want, wdone = dr.dense_chunk_reference(vals, want, target, tol,
+                                                   max_it, chunk, sfoe,
+                                                   rows=rows_p)
+            total += chunk
+            bad = forward_states_differ(got, want)
+            if not torch.equal(rows_k, rows_p):
+                bad.append("rows")
+            if bool(gdone) != bool(wdone):
+                bad.append("alldone")
+            assert not bad, (name, total, bad)
+            if total <= 64 and b <= 512:
+                worst = max(worst, check_single_round(dr, vals, got, name))
+            if bool(wdone):
+                break
+        assert bool(got.done.all()), (name, "not done", total)
+        if max_it < 100:
+            assert int(got.nits.max()) == max_it, name
+        cases.append({"case": name, "batch": b, "rounds_compared": total,
+                      "nits_max": int(got.nits.max()),
+                      "eps_reductions_max": int(got.nreductions.max()),
+                      "rows": int(rows_k.sum()),
+                      "unassigned": int((got.p2o == 2**31 - 1).sum())})
+    emit({"phase": "dense_chunk_vs_plain", "kernel": "dense_round_kernel",
+          "checkpoints": "after 1, 2, 5, 64 rounds, then every 64 to done; "
+                         "single-round entries at the first four, as the "
+                         "state stands and with forced done flags and "
                          "per-instance eps; single entry = batch at B=1",
           "cases": cases, "tolerance": 0, "max_abs_err": worst,
-          "fields": "prices, p2o, o2p, chosen, maxp, bit-exact"})
+          "fields": "every ForwardState field, alldone and rows; the "
+                    "round's prices, p2o, o2p, chosen, maxp; bit-exact"})
+    return worst
+
+
+def check_single_round(dr, vals_nm, st, name):
+    """The single-round entry points at state ``st`` against their plain
+    version, bit for bit; returns the largest price difference (0)."""
+    b = vals_nm.shape[0]
+    vt = vals_nm.transpose(1, 2).contiguous()
+    done2 = st.done.clone()
+    done2[::3] = True
+    eps2 = st.eps * torch.linspace(0.5, 2.0, b, device="cuda")
+    worst = 0.0
+    for eps_b, done_b in ((st.eps, st.done), (eps2, done2)):
+        args = (vt, st.prices, st.p2o, st.o2p, eps_b, done_b)
+        got = dr.fused_dense_round_batch(*args, vals_nm=vals_nm)
+        torch.cuda.synchronize()
+        want = dr.fused_dense_round_batch_reference(*args)
+        bad = round_outputs_differ(got, want)
+        assert not bad, (name, "single round", bad)
+        worst = max(worst, float((got[0].double() - want[0].double())
+                                 .abs().max()))
+    one = dr.fused_dense_round(vt[1], st.prices[1], st.p2o[1], st.o2p[1],
+                               float(st.eps[1]), bool(st.done[1]))
+    at_b1 = dr.fused_dense_round_batch(
+        vt[1:2], st.prices[1:2], st.p2o[1:2], st.o2p[1:2], st.eps[1:2],
+        st.done[1:2])
+    bad = round_outputs_differ(one, [x[0] for x in at_b1])
+    assert not bad, (name, "single entry", bad)
     return worst
 
 
@@ -1029,6 +1109,10 @@ def phase_forward_rect(port, batch, dr, scipy_lsa):
     first_ms, sol = sync_ms(solve)
     launches = dr.LAUNCHES
     assert launches > 0, "the forward path launched no dense round kernel"
+    # one launch a 64-round chunk, as many chunks as the slowest instance
+    # needs
+    chunks = -(-int(sol.nits.max()) // 64)
+    assert launches == chunks, (launches, chunks)
     torch.cuda.reset_peak_memory_stats()
     warm_ms, sol2 = sync_ms(solve)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1044,52 +1128,61 @@ def phase_forward_rect(port, batch, dr, scipy_lsa):
           "eps": eps, "generate_s": gen_s, "first_call_ms": first_ms,
           "warm_ms": warm_ms, "instances_per_s": b / (warm_ms / 1e3),
           "nits_p50": float(np.median(nits)), "nits_max": int(nits.max()),
-          "dense_round_launches": launches, "scipy_equal": len(rows),
-          "peak_device_gib": peak_gib})
+          "dense_round_launches": launches, "chunks": chunks,
+          "scipy_equal": len(rows), "peak_device_gib": peak_gib})
     return costs, eps, launches, warm_ms, int(nits.max())
 
 
+def forward_loop(batch, costs, eps, solver):
+    """``batch._solve_batch_dense`` on ``costs`` as ``solve_batch`` runs
+    it, each step timed on its own and ended by a device sync: the host
+    parameters, the copy to the card, the staging and the chunk loop,
+    with the chunk kernel's launches timed by CUDA events."""
+    b, n, m = costs.shape
+    t = {}
+    t["host_params_ms"], (eps_val, target, tol, thr) = sync_ms(
+        lambda: batch._dense_engine_params(costs, solver, eps, n, m, 128.0))
+    t["copy_to_card_ms"], dev = sync_ms(
+        lambda: torch.from_numpy(costs).cuda())
+    t["stage_ms"], work = sync_ms(lambda: batch._stage_work(dev, True))
+    del dev
+    events = []
+    real = batch.fused_dense_chunk
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    batch.fused_dense_chunk = timed
+    try:
+        t["loop_ms"], out = sync_ms(
+            lambda: batch._solve_batch_dense(work, eps_val, target, tol, thr,
+                                             solver, 100_000, n, m))
+    finally:
+        batch.fused_dense_chunk = real
+    kernel_ms = sum(s.elapsed_time(e) for s, e in events)
+    return t, out, kernel_ms, len(events)
+
+
 def phase_forward_breakdown(batch, dr, costs, eps, warm_ms):
-    """Where the wall of one warm ``forward_rect`` solve goes: staging,
-    the chunk loop (the kernel by CUDA events around every launch, the
-    bookkeeping and gaps as the rest of the loop's wall), the alldone
-    readbacks, the result readback and the host post-processing."""
+    """Where the wall of one warm ``forward_rect`` solve goes: the host
+    parameters, the copy, the staging, the chunk loop (the kernel by CUDA
+    events around every launch, the rest of the loop's wall beside it),
+    the alldone readback, the result readback and the host
+    post-processing."""
     from sparse_linear_assignment_tpu_torch.solution import (
         UNASSIGNED,
         o2p_from_p2o,
     )
 
-    b, n, m = costs.shape
-    t = {}
-    t["host_params_ms"], (eps_val, target, tol, thr) = sync_ms(
-        lambda: batch._dense_engine_params(costs, "forward", eps, n, m,
-                                           128.0))
-    t["copy_to_card_ms"], dev = sync_ms(
-        lambda: torch.from_numpy(costs).cuda())
-    t["stage_ms"], vt = sync_ms(lambda: batch._stage_values_t(dev, True))
-    del dev
-
-    events = []
-    real = batch.fused_dense_round_batch
-
-    def timed(*args):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = real(*args)
-        end.record()
-        events.append((start, end))
-        return out
-
-    batch.fused_dense_round_batch = timed
-    try:
-        t["loop_ms"], (p2o_dev, eps_dev, nits_dev) = sync_ms(
-            lambda: batch._solve_batch_dense(vt, eps_val, target, tol, thr,
-                                             "forward", 100_000, n, m))
-    finally:
-        batch.fused_dense_round_batch = real
-    kernel_ms = sum(s.elapsed_time(e) for s, e in events)
-    rounds = len(events)
+    m = costs.shape[2]
+    t, (p2o_dev, eps_dev, nits_dev), kernel_ms, launches = forward_loop(
+        batch, costs, eps, "forward")
     flag = nits_dev.sum() > 0
     readback_ms, _ = sync_ms(lambda: bool(flag), reps=5)
     t["result_readback_ms"], p2o = sync_ms(
@@ -1103,27 +1196,36 @@ def phase_forward_breakdown(batch, dr, costs, eps, warm_ms):
     total = sum(t.values())
     emit({"phase": "forward_breakdown", **t, "sum_ms": total,
           "warm_wall_ms": warm_ms, "of_loop_kernel_ms": kernel_ms,
-          "of_loop_bookkeeping_and_gaps_ms": t["loop_ms"] - kernel_ms,
-          "rounds_launched": rounds, "chunks": rounds // 64,
-          "kernel_ms_per_round": kernel_ms / rounds,
+          "of_loop_rest_ms": t["loop_ms"] - kernel_ms,
+          "launches": launches,
           "alldone_readback_ms_each": readback_ms,
           "kernel_share_of_sum": kernel_ms / total,
-          "note": "loop_ms is _solve_batch_dense: forward_init, 64-round "
-                  "chunks of one kernel launch plus the eps-scaling "
-                  "bookkeeping a round, one alldone readback a chunk"})
-    del vt
+          "note": "loop_ms is _solve_batch_dense: forward_init, one chunk "
+                  "kernel launch a 64-round chunk with the eps-scaling "
+                  "bookkeeping inside, one alldone readback a chunk"})
 
 
-def phase_forward_square(port, scipy_lsa):
-    """``solver="forward"`` on square instances, the eps-scaling path,
-    and rectangular ``linear_sum_assignment`` in both orientations."""
+def phase_forward_square(port, batch, dr, scipy_lsa):
+    """``solver="forward"`` on square instances, the eps-scaling path
+    (its wall, launches and chunk loop), and rectangular
+    ``linear_sum_assignment`` in both orientations."""
     b, n = 512, 256
     rng = np.random.default_rng(SEED + 2)
     costs = rng.integers(1, 1000, size=(b, n, n)).astype(np.float32)
     eps = 1.0 / (n + 1)
-    wall_ms, sol = sync_ms(lambda: port.solve_batch(
-        costs, solver="forward", eps=eps))
+
+    def solve():
+        return port.solve_batch(costs, solver="forward", eps=eps)
+
+    dr.LAUNCHES = 0
+    first_ms, sol = sync_ms(solve)
+    launches = dr.LAUNCHES
+    chunks = -(-int(sol.nits.max()) // 64)
+    assert launches == chunks, (launches, chunks)
+    wall_ms, sol2 = sync_ms(solve, reps=3)
+    assert np.array_equal(sol.person_to_object, sol2.person_to_object)
     assert int(sol.num_unassigned.max()) == 0, "unassigned persons"
+    t, _, kernel_ms, _ = forward_loop(batch, costs, eps, "forward")
     start = np.abs(costs.reshape(b, -1)).max(axis=1) / 128.0
     reductions = np.rint(np.log(sol.eps / start) / np.log(0.15)).astype(int)
     assert reductions.max() > 0, "no eps reduction anywhere"
@@ -1141,7 +1243,9 @@ def phase_forward_square(port, scipy_lsa):
         lsa.append({"shape": list(shape), "wall_ms": ms,
                     "scipy_equal": True})
     emit({"phase": "forward_square", "batch": b, "n": n, "eps": eps,
-          "start_eps": "max|cost| / 128", "wall_ms": wall_ms,
+          "start_eps": "max|cost| / 128", "first_call_ms": first_ms,
+          "wall_ms": wall_ms, "dense_round_launches": launches,
+          "chunks": chunks, **t, "of_loop_kernel_ms": kernel_ms,
           "nits_p50": float(np.median(sol.nits)),
           "nits_max": int(sol.nits.max()),
           "eps_reductions_min": int(reductions.min()),
@@ -1200,71 +1304,75 @@ def phase_fr_plain_rounds(port, batch, fr_kernel, scipy_lsa):
                   "native engine, as on the JAX schedule"})
 
 
-def phase_dense_round_time(dr, forward_init):
-    """The fused round kernel at the main path's shape: CUDA-event time
-    of one launch from the initial state, the plain version on the same
-    input, and the bound."""
+def phase_dense_chunk_time(dr, forward_init):
+    """The forward chunk kernel at the main path's shape, 4096 x (256
+    persons x 512 objects) float32 from the initial state: CUDA-event
+    time of one 64-round launch, of its first round alone and of a
+    launch on the finished batch; the plain version on the same input;
+    the bound by bytes once and by the rows really read; and the
+    single-round entry points at the same shape."""
     b, n, m = 4096, 256, 512
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 4)
-    vals = -torch.randint(1, 1000, (b, m, n), generator=gen, device="cuda",
+    vals = -torch.randint(1, 1000, (b, n, m), generator=gen, device="cuda",
                           dtype=torch.int32).float()
-    st = forward_init(vals, 1.0 / (n + 1))
-    args = (vals, st.prices, st.p2o, st.o2p, st.eps, st.done)
-    got = dr.fused_dense_round_batch(*args)
-    kernel_ms = event_ms(lambda: dr.fused_dense_round_batch(*args), reps=5)
-    done_ms = event_ms(lambda: dr.fused_dense_round_batch(
-        *args[:5], torch.ones_like(st.done)), reps=5)
-    plain_ms, want = sync_ms(
-        lambda: dr.fused_dense_round_batch_reference(*args))
-    bad = round_outputs_differ(got, want)
-    assert not bad, ("dense round at the main path's shape", bad)
-    # the single-instance entry point: the same kernel at B = 1
-    one = (vals[0], st.prices[0], st.p2o[0], st.o2p[0], st.eps[0],
-           st.done[0])
-    single_ms = event_ms(lambda: dr.fused_dense_round(*one), reps=5)
-    single_plain_ms, _ = sync_ms(
-        lambda: dr.fused_dense_round_batch_reference(
-            *(x[None] for x in one)), reps=5)
-    err = float((got[0].double() - want[0].double()).abs().max())
-    assigned = int((got[1] != 2**31 - 1).sum())
-    # the widest plane the forward engine meets within 1024² elements:
-    # 128 persons, so two threads share a person's 8192 objects
-    wb, wn, wm = 128, 128, 8192
-    wide = -torch.randint(1, 1000, (wb, wm, wn), generator=gen,
-                          device="cuda", dtype=torch.int32).float()
-    wst = forward_init(wide, 1.0 / (wn + 1))
-    wargs = (wide, wst.prices, wst.p2o, wst.o2p, wst.eps, wst.done)
-    wide_ms = event_ms(lambda: dr.fused_dense_round_batch(*wargs), reps=5)
-    wide_bytes = wide.numel() * 4 + wb * (16 * wm + 16 * wn + 5)
-    del wide, wst, wargs
-    # every input read once, every output written once
-    state_in = b * (m * 4 + n * 4 + m * 4 + 4 + 1)
-    state_out = b * (m * 4 + n * 4 + m * 4 + n * 4 + n * 4)
-    bytes_once = vals.numel() * 4 + state_in + state_out
-    # a subtract and two compares per element for the bids, a subtract
-    # and a max for the margins
-    ops = 5 * vals.numel()
+    target = np.float32(1.0 / (n + 1))
+    tol = np.float32(2.0 ** (int(np.log2(999.0)) - 53))
+    st = forward_init(vals.transpose(1, 2), float(target))
+    args = (target, tol, 100_000)
+    rows = torch.zeros(b, dtype=torch.int64, device="cuda")
+    got, _ = dr.fused_dense_chunk(vals, st, *args, 64, True, rows=rows)
+    assert bool(got.done.all()), "forward-rect not done within one chunk"
+    kernel_ms = event_ms(
+        lambda: dr.fused_dense_chunk(vals, st, *args, 64, True), reps=5)
+    first_round_ms = event_ms(
+        lambda: dr.fused_dense_chunk(vals, st, *args, 1, True), reps=5)
+    done_ms = event_ms(
+        lambda: dr.fused_dense_chunk(vals, got, *args, 64, True), reps=5)
+    plain_ms, (want, _) = sync_ms(
+        lambda: dr.dense_chunk_reference(vals, st, *args, 64, True))
+    bad = forward_states_differ(got, want)
+    assert not bad, ("forward chunk at the main path's shape", bad)
+    err = float((got.prices.double() - want.prices.double()).abs().max())
+    rows_read = int(rows.sum())
+    # every input read once, every output written once: the plane and
+    # the state (prices, p2o, o2p, eps, nits, nreductions, two flags)
+    state = b * (4 * m + 4 * n + 4 * m + 4 + 4 + 4 + 1 + 1)
+    bytes_once = vals.numel() * 4 + 2 * state
+    # a subtract and two compares for every element of every row read
+    ops = 3 * rows_read * m
     bound_bytes_ms = bytes_once / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = ops / F32_OPS_PER_S * 1e3
     bound_ms = max(bound_bytes_ms, bound_ops_ms)
     bound_by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
-    emit({"phase": "dense_round_time", "shape": [b, m, n],
-          "dtype": "float32", "state": "initial: every person bids",
-          "ms": kernel_ms, "ms_all_done": done_ms, "plain_ms": plain_ms,
-          "bound_ms": bound_ms, "bound_by": bound_by,
+    rows_bound_ms = rows_read * m * 4 / HBM_BYTES_PER_S * 1e3
+    # the single-round entry points: one round with both margins
+    vt = vals.transpose(1, 2).contiguous()
+    one = (vt, st.prices, st.p2o, st.o2p, st.eps, st.done)
+    single_ms = event_ms(
+        lambda: dr.fused_dense_round_batch(*one, vals_nm=vals), reps=5)
+    single_plain_ms, _ = sync_ms(
+        lambda: dr.fused_dense_round_batch_reference(*one))
+    b1 = (vt[0], st.prices[0], st.p2o[0], st.o2p[0], st.eps[0], st.done[0])
+    b1_ms = event_ms(lambda: dr.fused_dense_round(*b1), reps=5)
+    del vt
+    emit({"phase": "dense_chunk_time", "shape": [b, n, m],
+          "dtype": "float32", "state": "initial, start eps = target",
+          "chunk": 64, "nits_p50": float(got.nits.float().median()),
+          "nits_max": int(got.nits.max()), "ms": kernel_ms,
+          "first_round_ms": first_round_ms, "ms_all_done": done_ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
           "bytes_once": bytes_once, "bound_ops_ms": bound_ops_ms,
-          "bytes_per_s_achieved": bytes_once / (kernel_ms / 1e3),
-          "assigned_after_the_round": assigned, "library_ms": None,
-          "plain_bit_exact": True,
-          "single_entry": {"shape": [m, n], "ms": single_ms,
-                           "plain_ms": single_plain_ms,
-                           "bound_ms": bound_ms / b},
-          "wide_plane": {"shape": [wb, wm, wn], "ms": wide_ms,
-                         "threads_per_person": 2,
-                         "bound_ms": wide_bytes / HBM_BYTES_PER_S * 1e3}})
+          "rows_read": rows_read, "rows_bound_ms": rows_bound_ms,
+          "bytes_per_s_achieved": rows_read * m * 4 / (kernel_ms / 1e3),
+          "library_ms": None, "plain_bit_exact": True,
+          "single_round": {"ms": single_ms, "plain_ms": single_plain_ms,
+                           "b1_ms": b1_ms, "note": "one round with both "
+                           "margins of every person, every person bidding"}})
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_err": err}
+            "bound_by": bound_by, "max_abs_err": err,
+            "rows_bound_ms": rows_bound_ms, "first_round_ms": first_round_ms,
+            "single_round_ms": single_ms}
 
 
 def main() -> int:
@@ -1319,7 +1427,7 @@ def main() -> int:
     max_err = phase_kernel_vs_plain(fr_kernel, fr_init)
     big_plain = phase_big_kernel_vs_plain(batch, fr_big, fr_init)
     phase_ksp_kernel_vs_plain(port, batch, ksp)
-    dr_err = phase_dense_round_vs_plain(batch, dr, forward_init)
+    dr_err = phase_dense_chunk_vs_plain(dr, forward_init)
 
     # 3. the north-star solve through the public entry point
     b, n, max_cost = 4096, 256, 1000
@@ -1380,12 +1488,20 @@ def main() -> int:
     vt, work = lattice_values(costs)
     s0 = fr_init(vt, 1)
     rows = torch.zeros(b, dtype=torch.int64, device="cuda")
+    cyc = torch.zeros(len(fr_kernel.PHASES), dtype=torch.int64,
+                      device="cuda")
+    stamps = torch.zeros((b, 2), dtype=torch.int64, device="cuda")
     got, _ = fr_kernel.fr_chunk(vt, s0, rounds0, values=work,
-                                bid_rows=rows)
+                                bid_rows=rows, phase_cycles=cyc,
+                                stamps=stamps)
     bid_rows = int(rows.sum())
     kernel_ms = event_ms(
         lambda: fr_kernel.fr_chunk(vt, s0, rounds0, values=work), reps=5
     )
+    counted_ms = event_ms(lambda: fr_kernel.fr_chunk(
+        vt, s0, rounds0, values=work, phase_cycles=torch.zeros_like(cyc),
+        stamps=torch.zeros_like(stamps)), reps=3)
+    split = fr_kernel_split(fr_kernel, cyc, stamps, got.nits)
     plain_ms, (want, _) = sync_ms(
         lambda: fr_kernel.fr_chunk_reference(vt, s0, rounds0)
     )
@@ -1401,12 +1517,16 @@ def main() -> int:
     bound_ms = max(bound_bytes_ms, bound_ops_ms)
     bound_by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
     row_bytes = bid_rows * n * elem
+    row_bound_ms = row_bytes / HBM_BYTES_PER_S * 1e3
     emit({"phase": "kernel_time", "shape": [b, n, n], "dtype": "int32",
           "rounds_budget": rounds0, "ms": kernel_ms, "plain_ms": plain_ms,
           "bound_ms": bound_ms, "bound_by": bound_by,
           "bytes_once": bytes_once, "bid_rows": bid_rows,
           "bidder_row_bytes": row_bytes,
-          "bidder_row_bound_ms": row_bytes / HBM_BYTES_PER_S * 1e3,
+          "bidder_row_bound_ms": row_bound_ms,
+          "target_ms": 2 * row_bound_ms,
+          "meets_target": kernel_ms <= 2 * row_bound_ms,
+          "ms_with_counters": counted_ms, **split,
           "plain_bit_exact": True})
     del vt, work, s0, got, want
 
@@ -1477,10 +1597,10 @@ def main() -> int:
         port, batch, dr, scipy_lsa)
     phase_forward_breakdown(batch, dr, rcosts, reps_, rect_warm_ms)
     del rcosts
-    phase_forward_square(port, scipy_lsa)
+    phase_forward_square(port, batch, dr, scipy_lsa)
     phase_khosla_dense(port, scipy_lsa)
     phase_fr_plain_rounds(port, batch, fr_kernel, scipy_lsa)
-    drt = phase_dense_round_time(dr, forward_init)
+    drt = phase_dense_chunk_time(dr, forward_init)
 
     # 11. the run's total and the kernels line
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})

@@ -27,9 +27,9 @@ instances on three routes:
 The forward engine (``solver="forward"``, and ``"fr"`` whenever
 ``N != M``) and the Khosla engine (``"khosla"``) run 64-round chunks
 over the whole batch (:func:`_solve_batch_dense`): the forward engine
-in float32 with one launch of the fused round kernel
-(``ops/dense_round.py``) a round and the eps-scaling bookkeeping in
-PyTorch, everything else on the plain rounds of ``ops/auction.py``.
+in float32 with one launch of the chunk kernel (``ops/dense_round.py``)
+a chunk, the eps-scaling bookkeeping inside it, everything else on the
+plain rounds of ``ops/auction.py``.
 
 Sparse mode (``solve_batch_sparse``, ``stage_batch_sparse``,
 ``stage_batch_sparse_device``, ``solve_batch_sparse_stream``): arcs
@@ -60,8 +60,11 @@ TPU-only measures of the JAX batch path that the port drops:
   and a warp multiple wide (``ops/ksparse_kernel.PLANE_ALIGN``);
 - the flat padded layouts of the forward chunk (``_FlatForwardState``)
   and the ``N % 128``, ``M % 8`` and ``N·M <= 1024²`` limits of its
-  kernel: the fused round kernel takes any shape whose state fits a
-  block's shared memory.
+  kernel: the forward chunk kernel takes any shape whose state fits a
+  block's shared memory;
+- ``solve_batch_stream``'s ``interpret=`` (Pallas interpret mode): the
+  keyword is accepted and ignored; ``device="cpu"`` tensors run the
+  kernels' plain versions instead.
 """
 
 from __future__ import annotations
@@ -86,7 +89,8 @@ from .ops.auction import (
     khosla_round,
 )
 from .ops.dense import DenseProblem
-from .ops.dense_round import fused_dense_round_batch, kernel_fits
+from .ops.dense_round import fused_dense_chunk, kernel_fits
+from .ops import fr_big
 from .ops.fr_big import fr_big_chunk
 from .ops.fr_dense import fr_init, fr_round
 from .ops.fr_kernel import fr_chunk
@@ -452,7 +456,9 @@ def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
 def _route(b, n, m, dtype, int_scale) -> str:
     """The FR engine's route for a square batch, the JAX package's
     routing: ``"big"``, ``"fused"`` or ``"plain"`` (see the module
-    docstring)."""
+    docstring).  A big single beyond the cluster kernel's shared memory
+    (``fr_big.plan``: S = 61,440 on 16 CTAs) raises its ``ValueError``
+    here, before anything is staged; nothing falls back."""
     f32 = np.dtype(dtype) == np.float32
     if (
         int_scale is None
@@ -461,6 +467,7 @@ def _route(b, n, m, dtype, int_scale) -> str:
         and n % 128 == 0
         and n * m > _BIG_MIN_ELEMS
     ):
+        fr_big.plan(n)
         return "big"
     if (
         (int_scale is not None or f32)
@@ -470,6 +477,12 @@ def _route(b, n, m, dtype, int_scale) -> str:
     ):
         return "fused"
     return "plain"
+
+
+def _stage_work(costs_dev: torch.Tensor, negate: bool) -> torch.Tensor:
+    """Sign-adjust (internal convention: maximize profit) into the
+    contiguous person-major layout ``[B, N, M]``."""
+    return (-costs_dev if negate else costs_dev).contiguous()
 
 
 def _stage_values_t(costs_dev: torch.Tensor, negate: bool) -> torch.Tensor:
@@ -587,53 +600,8 @@ def _batch_chunk(values_t, states, eps, target_eps, toleration, thresholds,
     return states, states.done.all()
 
 
-def _batch_chunk_kernel(values_t, states, target_eps, toleration,
-                        max_iterations: int, chunk: int, sfoe: bool):
-    """Forward-auction chunk on the fused round kernel
-    (``ops/dense_round.py``): each round is one launch for the whole
-    batch, with only the per-instance eps-scaling bookkeeping in
-    PyTorch.  The returned state's ``o2p`` is stale by design:
-    keep-valid phases only ever write it, and the caller rebuilds it
-    from the final ``p2o``."""
-    dtype, dev = values_t.dtype, values_t.device
-    target = torch.as_tensor(target_eps, dtype=dtype, device=dev)
-    tol = torch.as_tensor(toleration, dtype=dtype, device=dev)
-    factor = torch.tensor(0.15, dtype=dtype, device=dev)
-    s = states
-    for _ in range(chunk):
-        prices, p2o, o2p, chosen, maxp = fused_dense_round_batch(
-            values_t, s.prices, s.p2o, s.o2p, s.eps, s.done
-        )
-        nits = s.nits + (~s.done).to(torch.int32)
-        num_unassigned = (p2o == UNASSIGNED).sum(dim=1)
-        fully = (num_unassigned == 0) & ~s.done
-        if sfoe:
-            is_optimal = torch.ones_like(fully)
-        else:
-            is_optimal = (chosen + tol >= maxp - target).all(dim=1)
-        stop = is_optimal | (s.eps < target)
-        reduce = fully & ~stop
-        eps = torch.where(reduce, s.eps * factor, s.eps)
-        # keep the pairs that satisfy eps-CS at the reduced eps
-        release = reduce[:, None] & ~(
-            (p2o != UNASSIGNED)
-            & (chosen + tol >= maxp - eps[:, None])
-        )
-        s = type(s)(
-            prices=prices,
-            p2o=torch.where(release, UNASSIGNED, p2o),
-            o2p=o2p,
-            eps=eps,
-            nits=nits,
-            nreductions=s.nreductions + reduce.to(torch.int32),
-            optimal_found=s.optimal_found | (fully & is_optimal),
-            done=s.done | (fully & stop) | (nits >= max_iterations),
-        )
-    return s, s.done.all()
-
-
 def _kernel_usable(solver: str, n: int, m: int, dtype) -> bool:
-    """Whether the forward chunk runs on the fused round kernel: the
+    """Whether the forward chunk runs on the chunk kernel: the
     forward solver in float32 with the instance's state within a block's
     shared memory.  The shared memory alone decides the shape: the plane
     stays in device memory, so the kernel has no ``N·M`` crossover to
@@ -645,17 +613,20 @@ def _kernel_usable(solver: str, n: int, m: int, dtype) -> bool:
     )
 
 
-def _solve_batch_dense(values_t, eps, target_eps, toleration, thresholds,
+def _solve_batch_dense(work, eps, target_eps, toleration, thresholds,
                        solver: str, max_iterations: int, n: int, m: int,
                        chunk: int = 64):
-    """The forward and Khosla engines on ``values_t [B, M, N]``: the
-    initial state, then ``chunk``-round chunks with one readback of
-    ``alldone`` a chunk, until every instance is finished or
-    ``max_iterations`` rounds were run.  ``thresholds [B]`` holds the
-    Khosla price thresholds, or the forward engine's start eps.
-    Returns ``(p2o [B, N], final_eps [B], nits [B])`` on the device."""
-    b = values_t.shape[0]
-    dtype, dev = values_t.dtype, values_t.device
+    """The forward and Khosla engines on the sign-adjusted person-major
+    values ``work [B, N, M]``: the initial state, then ``chunk``-round
+    chunks with one readback of ``alldone`` a chunk, until every
+    instance is finished or ``max_iterations`` rounds were run.  The
+    chunk kernel reads ``work`` as it is; the plain rounds stage the
+    object-major ``[B, M, N]`` transpose, so each route holds one
+    layout.  ``thresholds [B]`` holds the Khosla price thresholds, or
+    the forward engine's start eps.  Returns ``(p2o [B, N], final_eps
+    [B], nits [B])`` on the device."""
+    b = work.shape[0]
+    dtype, dev = work.dtype, work.device
     np_dtype = _numpy_dtype(dtype)
     eps = np_dtype.type(eps)
     target_eps = np_dtype.type(target_eps)
@@ -663,6 +634,12 @@ def _solve_batch_dense(values_t, eps, target_eps, toleration, thresholds,
     thresholds = torch.from_numpy(
         np.asarray(thresholds).astype(np_dtype)
     ).to(dev)
+    use_kernel = _kernel_usable(solver, n, m, np_dtype)
+    if use_kernel:
+        values_t = work.transpose(1, 2)  # a view: the shape for the state
+    else:
+        values_t = work.transpose(1, 2).contiguous()
+        del work
 
     if solver == "khosla":
         states = KhoslaState(
@@ -677,12 +654,13 @@ def _solve_batch_dense(values_t, eps, target_eps, toleration, thresholds,
     else:
         states = forward_init(values_t, thresholds)
 
-    use_kernel = _kernel_usable(solver, n, m, np_dtype)
     rounds = 0
     while True:
         if use_kernel:
-            states, alldone = _batch_chunk_kernel(
-                values_t, states, target_eps, toleration, max_iterations,
+            # the returned o2p is stale by design (keep-valid phases only
+            # write it); the caller rebuilds it from the final p2o
+            states, alldone = fused_dense_chunk(
+                work, states, target_eps, toleration, max_iterations,
                 chunk, n != m,
             )
         else:
@@ -825,7 +803,7 @@ def solve_batch(
             costs, solver, eps, n, m, start_eps_divisor
         )
         p2o_dev, eps_dev, nits_dev = _solve_batch_dense(
-            _stage_values_t(costs_dev, not maximize), eps_val, target_eps,
+            _stage_work(costs_dev, not maximize), eps_val, target_eps,
             toleration, thresholds, solver, int(max_iterations), n, m,
         )
         p2o = p2o_dev.cpu().numpy()
@@ -917,6 +895,7 @@ def solve_batch_stream(
     integer: Optional[bool] = None,
     max_cost: Optional[float] = None,
     window: int = 2,
+    interpret: bool = False,
 ):
     """Pipelined device-resident solves: the sustained-throughput mode.
 
@@ -926,8 +905,13 @@ def solve_batch_stream(
     ``window`` batches in flight (``window`` staged value arrays live at
     once).  On the card each in-flight batch runs on its own CUDA stream,
     so a readback waits only for its own batch.  Semantics per batch are
-    those of ``solve_batch(None, costs_device=batch, ...)``; returns
-    ``list[BatchSolution]`` in input order."""
+    those of ``solve_batch(None, costs_device=batch, ...)``, except that
+    on the fused float route the reported ``eps`` is the caller's,
+    unrounded, as the JAX package's stream reports it (``solve_batch``
+    reports it rounded to float32); returns ``list[BatchSolution]`` in
+    input order.  ``interpret`` is the JAX package's Pallas switch,
+    accepted and ignored."""
+    del interpret
     device_batches = list(device_batches)
     if not device_batches:
         return []
@@ -961,7 +945,7 @@ def solve_batch_stream(
                    int_scale)
     else:
         eps_val = float(eps) if eps is not None else 1.0 / n
-        final_eps = float(np.float32(eps_val))
+        final_eps = eps_val
     negate = not maximize
     tdtype = _torch_dtype(dtype)
     base_rounds = _fr_fused_schedule(b, n, max_iterations)

@@ -1,49 +1,56 @@
-"""Fused dense forward-auction round (``csrc/dense_round_kernel.cu``).
+"""Forward-auction rounds on the card (``csrc/dense_round_kernel.cu``):
+a whole chunk of rounds with the eps-scaling bookkeeping in one launch,
+or one fused round with its eps-CS margins.
 
 Replaces the JAX package's two Pallas TPU kernels of
 ``ops/pallas_dense.py``: ``_batch_round_kernel`` (driven by
 ``fused_dense_round_batch_flat`` and ``fused_dense_round_batch``, a grid
 over the batch) and ``_round_kernel`` (``fused_dense_round``, one
-instance), both bodies of ``_round_math``.  One launch runs one round of
-every instance of a batch: bidding, conflict resolution with the
-smallest-person tie rule, assignment, and the eps-CS margins of the
-updated state that the eps-scaling bookkeeping of
-``batch._batch_chunk_kernel`` reads.  :func:`fused_dense_round` is the
-same kernel at ``B = 1``: one CTA for the instance.
+instance), both bodies of ``_round_math``, together with the XLA
+bookkeeping that ``batch.py:_batch_chunk_pallas`` runs around each
+round.  :func:`fused_dense_chunk` runs up to ``chunk`` rounds of every
+instance in one launch, each instance leaving the loop once it is done,
+and returns the ``ForwardState`` that ``chunk`` rounds of
+:func:`dense_chunk_reference` return, bit for bit.
+:func:`fused_dense_round_batch` and :func:`fused_dense_round` (the same
+at ``B = 1``) run one round of the same kernel and return its margins.
 
-What bounds it on an H100.  A round reads the object-major plane
-``vals_b [B, M, N]`` and does a subtract and two compares per element:
-2 GiB at 4096 x (256 persons x 512 objects) float32, about 0.64 ms at
-3.35 TB/s against 0.03 ms of arithmetic, so the bytes bound it.  One
-256 x 512 instance is 512 KB, more than the 227 KB of shared memory a
-block can use, so the plane stays in device memory and the margins at
-the new prices need a second pass over it (from L2 where it still holds
-the instance).  The design:
+What bounds it on an H100.  A round reads the rows of its bidders (the
+unassigned persons) and, in a round where an instance has just become
+fully assigned on a square plane, every row once more for the margins;
+a subtract and two compares per element, so the bytes bound it.  The
+opening round of 4096 x (256 persons x 512 objects) float32 reads the
+whole 2 GiB plane, about 0.64 ms at 3.35 TB/s; the rounds after it read
+a few rows each, and there the round's latency sets the pace.  The
+design:
 
 - one CTA of 256 threads per instance; prices, one 64-bit conflict key
-  per object, ``p2o`` and each person's choice in shared memory (12
-  bytes per object, 8 per person, 4 KB of merge scratch);
-- threads as ``W`` person lanes by ``S`` row splits (``W * S = 256``):
-  a lane walks one person's column, a warp's loads are coalesced along
-  the contiguous person axis, and with fewer than 256 persons the ``M``
-  rows are split over ``S`` threads a person and merged with the exact
-  top-2 merge (equal profits to the smaller object, the loser's best
-  into ``second``);
+  per object, ``p2o``, each bidder's choice and the bidder list in
+  shared memory for the whole launch (12 bytes per object, 12 per
+  person), written back once at exit; ``o2p`` is updated in place;
+- the person-major plane ``[B, N, M]`` (the sign-adjusted costs as they
+  are, no transpose): a warp takes several bidders' contiguous rows at
+  once in 16-byte loads, up to 8 loads a lane in flight, and merges the
+  lanes' partial top-2s with the exact merge (equal profits to the
+  smaller object, the loser's best into ``second``);
 - bids meet in one ``atomicMax`` per bidder on the object's key
   (``csrc/fr_common.cuh:bid_key``): the largest bid, the smallest
   person among equal bids;
-- an instance that is done skips the bidding pass and reads the plane
-  once, for its margins;
+- the margins are computed only where the bookkeeping reads them (an
+  instance that has just become fully assigned, ``N == M``);
+- the bookkeeping in float32 with no fma (one ``__fmul_rn`` for the
+  reduction of eps by ``0.15``); a finished instance returns at once;
 - not carried over from the TPU kernel: the ``[B*8, N]`` sublane padding
   of the person vectors, the ``[M, 1]`` / ``[1, N]`` lane layouts, scalar
   prefetch, and the ``N % 128``, ``M % 8`` tiling limits.
 
-Limits: float32 values; ``12 M + 8 N + 4096`` bytes of shared memory
-within ``MAX_SMEM_BYTES`` (about 19,000 objects).  Any ``N <= M``.
+Limits: float32 values; ``12 M + 12 N`` bytes of shared memory within
+``MAX_SMEM_BYTES`` (about 19,000 objects).  Any ``N <= M``.
 
-On CPU tensors the entry points run the plain PyTorch version
-:func:`fused_dense_round_batch_reference`; on CUDA tensors they launch
-the kernel or raise.  ``LAUNCHES`` counts the launches.
+On CPU tensors the entry points run the plain PyTorch versions
+:func:`dense_chunk_reference` and :func:`fused_dense_round_batch_reference`;
+on CUDA tensors they launch the kernel or raise.  ``LAUNCHES`` counts the
+launches.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ import torch
 
 from ..solution import UNASSIGNED
 from . import _build
+from .auction import ForwardState
 
 #: kernel launches made by the entry points in this process
 LAUNCHES = 0
@@ -70,12 +78,12 @@ def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("dense_round_kernel")
-        p = ctypes.c_void_p
-        lib.slap_dense_round.argtypes = [
-            p, p, p, p, p, p, p, p, p, p, p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.slap_dense_chunk.argtypes = [
+            p, p, p, p, p, p, p, p, p, p, p, p,
+            ctypes.c_float, ctypes.c_float, i, i, i, i, i, i, p,
         ]
-        lib.slap_dense_round.restype = ctypes.c_int
+        lib.slap_dense_chunk.restype = ctypes.c_int
         lib.slap_dense_round_error_string.argtypes = [ctypes.c_int]
         lib.slap_dense_round_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -84,7 +92,7 @@ def _kernel_lib() -> ctypes.CDLL:
 
 def smem_bytes(n: int, m: int) -> int:
     """Shared memory the kernel needs for one ``n x m`` instance."""
-    return 12 * m + 8 * n + 4096
+    return 12 * m + 12 * n
 
 
 def kernel_fits(n: int, m: int) -> bool:
@@ -178,7 +186,8 @@ def fused_dense_round_batch_reference(vals_b, prices_b, p2o_b, o2p_b, eps_b,
             chosen, maxp)
 
 
-def fused_dense_round_batch(vals_b, prices_b, p2o_b, o2p_b, eps_b, done_b):
+def fused_dense_round_batch(vals_b, prices_b, p2o_b, o2p_b, eps_b, done_b,
+                            vals_nm=None):
     """One fused forward-auction round of a whole batch: ``vals_b
     [B, M, N]`` (object-major, ``-inf`` at non-arcs), ``prices_b
     [B, M]``, ``p2o_b [B, N]`` int32, ``o2p_b [B, M]`` int32, ``eps_b
@@ -187,7 +196,9 @@ def fused_dense_round_batch(vals_b, prices_b, p2o_b, o2p_b, eps_b, done_b):
     [B, N], o2p' [B, M], chosen [B, N], maxp [B, N])``, the last two the
     eps-CS margins of the updated state.  CPU tensors run
     :func:`fused_dense_round_batch_reference`; CUDA tensors launch the
-    kernel (float32 only)."""
+    kernel (float32 only), which reads the person-major layout:
+    ``vals_nm``, ``vals_b``'s transpose ``[B, N, M]`` if the caller has
+    it (built here otherwise)."""
     if vals_b.device.type == "cpu":
         return fused_dense_round_batch_reference(
             vals_b, prices_b, p2o_b, o2p_b, eps_b, done_b
@@ -196,7 +207,21 @@ def fused_dense_round_batch(vals_b, prices_b, p2o_b, o2p_b, eps_b, done_b):
     if vals_b.device.type != "cuda":
         raise ValueError(f"the dense round runs on cpu or cuda, not "
                          f"{vals_b.device}")
-    return _round_cuda(vals_b, prices_b, p2o_b, o2p_b, eps_b, done_b)
+    if vals_nm is None:
+        vals_nm = vals_b.transpose(1, 2)
+    elif tuple(vals_nm.shape) != tuple(vals_b.transpose(1, 2).shape):
+        raise ValueError("vals_nm must be vals_b's transpose")
+    b, m, n = vals_b.shape
+    prices = prices_b.to(torch.float32).contiguous().clone()
+    p2o = p2o_b.to(torch.int32).contiguous().clone()
+    o2p = o2p_b.to(torch.int32).contiguous().clone()
+    eps = eps_b.to(torch.float32).contiguous().clone()
+    done = done_b.to(torch.bool).contiguous()
+    chosen = torch.empty((b, n), dtype=torch.float32, device=vals_b.device)
+    maxp = torch.empty_like(chosen)
+    _launch(vals_nm, prices, p2o, o2p, eps, None, None, None, done,
+            chosen, maxp, None, 0.0, 0.0, 0, 1, 0)
+    return prices, p2o, o2p, chosen, maxp
 
 
 def fused_dense_round(vals_t, prices, p2o, o2p, eps, done):
@@ -213,43 +238,156 @@ def fused_dense_round(vals_t, prices, p2o, o2p, eps, done):
     return tuple(x[0] for x in out)
 
 
-def _round_cuda(vals_b, prices_b, p2o_b, o2p_b, eps_b, done_b):
+def _check_chunk(vals_nm, states: ForwardState, rows) -> None:
+    if vals_nm.dim() != 3:
+        raise ValueError("vals_nm must be [B, N, M]")
+    if not vals_nm.dtype.is_floating_point:
+        raise ValueError(f"the forward chunk takes float values, got "
+                         f"{vals_nm.dtype}")
+    b, n, m = vals_nm.shape
+    for name, want in (
+        ("prices", (b, m)), ("p2o", (b, n)), ("o2p", (b, m)),
+        ("eps", (b,)), ("nits", (b,)), ("nreductions", (b,)),
+        ("optimal_found", (b,)), ("done", (b,)),
+    ):
+        t = getattr(states, name)
+        if tuple(t.shape) != want:
+            raise ValueError(f"states.{name} has shape {tuple(t.shape)}, "
+                             f"expected {want}")
+        if t.device != vals_nm.device:
+            raise ValueError(f"states.{name} is on {t.device}, vals_nm "
+                             f"on {vals_nm.device}")
+    if rows is not None and (
+        rows.dtype != torch.int64 or tuple(rows.shape) != (b,)
+        or rows.device != vals_nm.device or not rows.is_contiguous()
+    ):
+        raise ValueError("rows must be a contiguous int64 [B] tensor on "
+                         "the values' device")
+
+
+def dense_chunk_reference(vals_nm, states: ForwardState, target_eps,
+                          toleration, max_iterations: int, chunk: int,
+                          sfoe: bool, rows=None):
+    """Plain PyTorch version of the chunk kernel: ``chunk`` rounds of
+    :func:`fused_dense_round_batch_reference` with the eps-scaling
+    bookkeeping of the JAX package's ``_batch_chunk_pallas`` after each
+    (``sfoe``: no eps-scaling, a full assignment stops).  Finished
+    instances are frozen, so the loop stops once all are done.  The
+    returned state's ``o2p`` is stale by design: keep-valid phases only
+    ever write it.  ``rows [B]`` int64, if given, gains the rows each
+    instance read: its bidders every round, and all ``N`` rows in a
+    round that computes the margins.  Returns ``(states, alldone)``."""
+    _check_chunk(vals_nm, states, rows)
+    dtype, dev = vals_nm.dtype, vals_nm.device
+    n = vals_nm.shape[1]
+    vals_b = vals_nm.transpose(1, 2)
+    target = torch.as_tensor(target_eps, dtype=dtype, device=dev)
+    tol = torch.as_tensor(toleration, dtype=dtype, device=dev)
+    factor = torch.tensor(0.15, dtype=dtype, device=dev)
+    s = states
+    for _ in range(chunk):
+        if bool(s.done.all()):
+            break
+        if rows is not None:
+            rows += ((s.p2o == _INT_MAX) & ~s.done[:, None]).sum(dim=1)
+        prices, p2o, o2p, chosen, maxp = fused_dense_round_batch_reference(
+            vals_b, s.prices, s.p2o, s.o2p, s.eps, s.done
+        )
+        nits = s.nits + (~s.done).to(torch.int32)
+        num_unassigned = (p2o == _INT_MAX).sum(dim=1)
+        fully = (num_unassigned == 0) & ~s.done
+        if sfoe:
+            is_optimal = torch.ones_like(fully)
+        else:
+            is_optimal = (chosen + tol >= maxp - target).all(dim=1)
+            if rows is not None:
+                rows += n * fully
+        stop = is_optimal | (s.eps < target)
+        reduce = fully & ~stop
+        eps = torch.where(reduce, s.eps * factor, s.eps)
+        # keep the pairs that satisfy eps-CS at the reduced eps
+        release = reduce[:, None] & ~(
+            (p2o != _INT_MAX) & (chosen + tol >= maxp - eps[:, None])
+        )
+        s = ForwardState(
+            prices=prices,
+            p2o=torch.where(release, _INT_MAX, p2o),
+            o2p=o2p,
+            eps=eps,
+            nits=nits,
+            nreductions=s.nreductions + reduce.to(torch.int32),
+            optimal_found=s.optimal_found | (fully & is_optimal),
+            done=s.done | (fully & stop) | (nits >= max_iterations),
+        )
+    return s, s.done.all()
+
+
+def fused_dense_chunk(vals_nm, states: ForwardState, target_eps, toleration,
+                      max_iterations: int, chunk: int, sfoe: bool,
+                      rows=None):
+    """Up to ``chunk`` forward-auction rounds of every instance with the
+    eps-scaling bookkeeping, in one launch: ``vals_nm [B, N, M]``
+    person-major (the sign-adjusted costs, ``-inf`` at non-arcs),
+    ``states`` a batched ``ForwardState``.  Returns ``(states,
+    alldone)``, bit-equal to :func:`dense_chunk_reference`, which CPU
+    tensors run; CUDA tensors launch the kernel (float32 only).
+    ``rows`` as there."""
+    _check_chunk(vals_nm, states, rows)
+    if vals_nm.device.type == "cpu":
+        return dense_chunk_reference(vals_nm, states, target_eps,
+                                     toleration, max_iterations, chunk,
+                                     sfoe, rows)
+    if vals_nm.device.type != "cuda":
+        raise ValueError(f"the forward chunk runs on cpu or cuda, not "
+                         f"{vals_nm.device}")
+    prices = states.prices.to(torch.float32).contiguous().clone()
+    p2o = states.p2o.to(torch.int32).contiguous().clone()
+    o2p = states.o2p.to(torch.int32).contiguous().clone()
+    eps = states.eps.to(torch.float32).contiguous().clone()
+    nits = states.nits.to(torch.int32).contiguous().clone()
+    nred = states.nreductions.to(torch.int32).contiguous().clone()
+    optimal = states.optimal_found.to(torch.bool).contiguous().clone()
+    done = states.done.to(torch.bool).contiguous().clone()
+    _launch(vals_nm, prices, p2o, o2p, eps, nits, nred, optimal, done,
+            None, None, rows, float(target_eps), float(toleration),
+            int(max_iterations), int(chunk), int(bool(sfoe)))
+    new = ForwardState(prices=prices, p2o=p2o, o2p=o2p, eps=eps, nits=nits,
+                       nreductions=nred, optimal_found=optimal, done=done)
+    return new, done.all()
+
+
+def _launch(vals_nm, prices, p2o, o2p, eps, nits, nred, optimal, done,
+            chosen, maxp, rows, target, tol, max_iterations, chunk, sfoe):
     global LAUNCHES
-    b, m, n = vals_b.shape
-    if vals_b.dtype != torch.float32:
+    if vals_nm.dtype != torch.float32:
         raise ValueError(f"the dense round kernel takes float32 values, got "
-                         f"{vals_b.dtype}; other types run "
-                         f"fused_dense_round_batch_reference")
+                         f"{vals_nm.dtype}; other types run the plain "
+                         f"versions")
+    b, n, m = vals_nm.shape
     need = smem_bytes(n, m)
     if need > MAX_SMEM_BYTES:
         raise ValueError(
             f"a {n}x{m} instance needs {need} bytes of shared memory "
-            f"(12 per object, 8 per person, 4096 of scratch), more than "
-            f"the {MAX_SMEM_BYTES} a block can use"
+            f"(12 per object, 12 per person), more than the "
+            f"{MAX_SMEM_BYTES} a block can use"
         )
-    dev = vals_b.device
-    vals = vals_b.contiguous()
-    prices = prices_b.to(torch.float32).contiguous()
-    p2o = p2o_b.to(torch.int32).contiguous()
-    o2p = o2p_b.to(torch.int32).contiguous()
-    eps = eps_b.to(torch.float32).contiguous()
-    done = done_b.to(torch.bool).contiguous()
-    prices_out = torch.empty((b, m), dtype=torch.float32, device=dev)
-    p2o_out = torch.empty((b, n), dtype=torch.int32, device=dev)
-    o2p_out = torch.empty((b, m), dtype=torch.int32, device=dev)
-    chosen = torch.empty((b, n), dtype=torch.float32, device=dev)
-    maxp = torch.empty((b, n), dtype=torch.float32, device=dev)
+    dev = vals_nm.device
+    vals = vals_nm.contiguous()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     lib = _kernel_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.slap_dense_round(
+        rc = lib.slap_dense_chunk(
             vals.data_ptr(), prices.data_ptr(), p2o.data_ptr(),
-            o2p.data_ptr(), eps.data_ptr(), done.data_ptr(),
-            prices_out.data_ptr(), p2o_out.data_ptr(), o2p_out.data_ptr(),
-            chosen.data_ptr(), maxp.data_ptr(), b, n, m, stream,
+            o2p.data_ptr(), eps.data_ptr(), ptr(nits), ptr(nred),
+            ptr(optimal), done.data_ptr(), ptr(chosen), ptr(maxp),
+            ptr(rows), target, tol, max_iterations, chunk, sfoe, b, n, m,
+            stream,
         )
     if rc != 0:
         msg = lib.slap_dense_round_error_string(rc).decode()
         raise RuntimeError(f"dense round kernel launch failed: {msg} ({rc})")
     LAUNCHES += 1
-    return prices_out, p2o_out, o2p_out, chosen, maxp

@@ -47,7 +47,7 @@ launches the kernel or raises.  ``LAUNCHES`` counts the launches.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -106,14 +106,16 @@ class Plan(NamedTuple):
     smem_bytes: int     # dynamic shared memory of a CTA
 
 
-def plan(S: int, smem_per_block: int = MAX_SMEM_BYTES,
+def plan(S: int, smem_per_block: Optional[int] = None,
          max_cluster: int = MAX_CLUSTER) -> Plan:
     """The launch shape of an ``S x S`` instance.  The cluster is 16
     CTAs where ``max_cluster`` allows it, else 8; a warp walks as many
     bidders at once as keep ``LOADS_IN_FLIGHT`` float4 loads a lane in
     flight; the partials take what shared memory the state leaves, up to
     one per row.  Raises ``ValueError`` naming the limit when ``S`` does
-    not fit."""
+    not fit.  ``smem_per_block`` defaults to ``MAX_SMEM_BYTES``."""
+    if smem_per_block is None:
+        smem_per_block = MAX_SMEM_BYTES
     if max_cluster >= 16:
         c = 16
     elif max_cluster >= 8:

@@ -9,22 +9,42 @@ loop as soon as its matching is full.
 
 What bounds it on an H100.  Each round of an instance reads the value
 rows of its current bidders (``S`` values each) and does little
-arithmetic on them, so the kernel is bound by those bytes and, once few
-bidders remain, by the latency of one round: a dependent chain of row
-loads, a warp reduction, shared-memory atomics and five block-wide
-barriers.  The design against that:
+arithmetic on them: at 4096 x 256² int32 the rows read add up to 4.8 GB,
+1.43 ms at 3.35 TB/s, most of it in the opening rounds, when every entry
+bids.  After those, a round has a few bidders and the pace is the
+latency of one round: a row load, a warp reduction, shared-memory
+atomics and the block barriers, over 142 rounds for the median instance
+and 810 for the slowest.  The previous design (a warp walking one
+bidder's row in 4-byte loads, 8 dependent steps at 256², five barriers,
+256 threads and 64 registers, so 4 instances an SM) spent two thirds of
+a round's cycles in the bids.  The design against that:
 
 - one CTA per instance, the whole instance state in shared memory for
   the whole loop, so the only device-memory traffic of a round is the
   bidders' rows (and nothing at all for finished instances, which exit
   at once);
-- only unassigned bidders read their rows: late rounds, with one or two
-  bidders, touch a few KB instead of the whole matrix;
+- only unassigned bidders read their rows, one bidder a warp in 16-byte
+  loads with all of the row's loads in flight (two a lane at 256²), so
+  a round with a few bidders costs one load latency;
+- two barriers a round, and the apply pass touches only the round's
+  entries, not all ``S``: each bidder takes its item (whose old owner
+  joins the next bidders) or stays a bidder, and the priced side's
+  unassigned that took no bid stay listed, so both of the next round's
+  lists (either mode may follow) come out of one pass; the keys and the
+  control words alternate between two sets by round, and every thread
+  computes the control from the same shared words;
+- 128 threads (two indices a thread at 256²) and at most 40 registers
+  a thread, so 12 instances of 256² are resident on an SM (1,584 on the
+  card, three times the old design's) and hide each other's round
+  latency; the apply pass no longer needs a thread per index;
 - both layouts stay in device memory (``values_t`` object-major and its
-  transpose), so a bidder's row is contiguous and coalesced in either
-  mode; the transpose costs one extra copy of the values;
-- many instances per SM (256 threads each at 256²) hide one instance's
-  round latency behind the others'.
+  transpose), so a bidder's row is contiguous in either mode; the
+  transpose costs one extra copy of the values.
+
+``phase_cycles`` splits the leader thread's cycles by phase; ``stamps``
+gives each CTA's start and end, the waves and the straggler.  Limits:
+``S`` a multiple of 4 (16-byte rows), ``60 S`` bytes of shared memory,
+``S <= MAX_SIDE``.
 
 On CPU tensors :func:`fr_chunk` runs the plain PyTorch version
 :func:`fr_chunk_reference`; on CUDA tensors it launches the kernel or
@@ -48,6 +68,13 @@ LAUNCHES = 0
 #: N * M <= 1024**2 with N == M)
 MAX_SIDE = 1024
 
+#: the phase counters of ``phase_cycles``, in order: clock64 cycles of
+#: each CTA's thread 0 summed over rounds and CTAs (``bids`` the row
+#: loads, top-2s and bids, ``apply`` the pass over the round's entries
+#: and the next lists, ``barrier_wait`` the time in block barriers,
+#: ``total`` whole rounds), and the rounds counted
+PHASES = ("bids", "apply", "control", "barrier_wait", "total", "rounds")
+
 _NO_LIMIT = 2**31 - 1
 _lib = None
 
@@ -58,7 +85,7 @@ def _kernel_lib() -> ctypes.CDLL:
         lib = _build.load("fr_kernel")
         p = ctypes.c_void_p
         lib.slap_fr_rounds.argtypes = [
-            ctypes.c_int, p, p, p, p, p, p, p, p, p,
+            ctypes.c_int, p, p, p, p, p, p, p, p, p, p, p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
         ]
         lib.slap_fr_rounds.restype = ctypes.c_int
@@ -118,7 +145,7 @@ def fr_chunk_reference(values_t, states: FRState, rounds: int,
 
 
 def fr_chunk(values_t, states: FRState, rounds: int, values=None,
-             bid_rows=None):
+             bid_rows=None, phase_cycles=None, stamps=None):
     """``rounds`` fused rounds over a batched :class:`FRState`; returns
     ``(states, all_done)``.
 
@@ -126,22 +153,43 @@ def fr_chunk(values_t, states: FRState, rounds: int, values=None,
     ``values`` is its transpose ``[B, N, M]`` if the caller already has
     it (built here otherwise).  ``eps`` and ``nreductions`` pass
     through; ``optimal_found |= done``.  CPU tensors run
-    :func:`fr_chunk_reference`; CUDA tensors launch the kernel."""
+    :func:`fr_chunk_reference`; CUDA tensors launch the kernel.
+
+    Measurement (CUDA tensors only: the plain version has no clock):
+    ``phase_cycles``, a contiguous int64 tensor of ``len(PHASES)``,
+    gains the kernel's phase counters; ``stamps``, a contiguous int64
+    ``[B, 2]`` tensor, receives each CTA's start and end on the card's
+    global timer (nanoseconds)."""
     check_state(values_t, states)
+    b = values_t.shape[0]
+    for name, t, shape in (("phase_cycles", phase_cycles, (len(PHASES),)),
+                           ("stamps", stamps, (b, 2))):
+        if t is None:
+            continue
+        if values_t.device.type == "cpu":
+            raise ValueError(f"{name} counts the CUDA kernel's clock; the "
+                             f"plain version has none")
+        if (t.dtype != torch.int64 or tuple(t.shape) != shape
+                or t.device != values_t.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int64 "
+                             f"{list(shape)} tensor on the values' device")
     if values_t.device.type == "cpu":
         return fr_chunk_reference(values_t, states, rounds, bid_rows)
     if values_t.device.type != "cuda":
         raise ValueError(f"fr_chunk runs on cpu or cuda, not "
                          f"{values_t.device}")
-    return _fr_chunk_cuda(values_t, states, rounds, values, bid_rows)
+    return _fr_chunk_cuda(values_t, states, rounds, values, bid_rows,
+                          phase_cycles, stamps)
 
 
-def _fr_chunk_cuda(values_t, states, rounds, values, bid_rows):
+def _fr_chunk_cuda(values_t, states, rounds, values, bid_rows, phase_cycles,
+                   stamps):
     global LAUNCHES
     b, m, n = values_t.shape
-    if n > MAX_SIDE:
+    if n > MAX_SIDE or n % 4:
         raise ValueError(f"the FR kernel takes instances up to "
-                         f"{MAX_SIDE}², got {n}²")
+                         f"{MAX_SIDE}² with a side that is a multiple of 4 "
+                         f"(16-byte rows), got {n}²")
     dtype = values_t.dtype
     vt = values_t.contiguous()
     v = (vt.transpose(1, 2) if values is None else values).contiguous()
@@ -157,6 +205,8 @@ def _fr_chunk_cuda(values_t, states, rounds, values, bid_rows):
             prices.data_ptr(), profits.data_ptr(), p2o.data_ptr(),
             o2p.data_ptr(), eps.data_ptr(), meta.data_ptr(),
             bid_rows.data_ptr() if bid_rows is not None else None,
+            phase_cycles.data_ptr() if phase_cycles is not None else None,
+            stamps.data_ptr() if stamps is not None else None,
             b, n, int(rounds), stream,
         )
     if rc != 0:

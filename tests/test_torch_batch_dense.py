@@ -237,8 +237,8 @@ def test_kernel_route_chunk_matches_pallas_chunk(n, m):
     for step in range(2):
         js, jdone = jbatch._batch_chunk_pallas(
             jv, js, target, tol, 70, chunk, sfoe, interpret=True)
-        ts, tdone = batch._batch_chunk_kernel(tv, ts, target, tol, 70,
-                                              chunk, sfoe)
+        ts, tdone = dr.fused_dense_chunk(tv.transpose(1, 2), ts, target,
+                                         tol, 70, chunk, sfoe)
         got = forward_state_to_numpy(ts)
         for name in JState._fields:
             want = np.asarray(getattr(js, name))
@@ -262,8 +262,8 @@ def test_forward_kernel_path_matches_jax_interpret(monkeypatch):
     kw = dict(solver="forward", dtype=np.float32, eps=1.0 / (n + 1))
     want = jbatch.solve_batch(costs, **kw)
     calls = []
-    real = batch._batch_chunk_kernel
-    monkeypatch.setattr(batch, "_batch_chunk_kernel",
+    real = batch.fused_dense_chunk
+    monkeypatch.setattr(batch, "fused_dense_chunk",
                         lambda *a: calls.append(1) or real(*a))
     got = port.solve_batch(costs, device="cpu", **kw)
     assert calls, "the kernel route was not taken"
@@ -330,6 +330,30 @@ def test_stream_falls_back_to_sequential_solves_off_the_fused_route():
         np.testing.assert_allclose(sol.objective, oracle(c), atol=1e-6)
     with pytest.raises(ValueError, match="square"):
         port.solve_batch_stream([torch.zeros((2, 8, 16))])
+
+
+def test_stream_reports_the_callers_eps_on_the_fused_route():
+    """On its fused route JAX's ``solve_batch_stream`` reports the
+    caller's eps unrounded (its ``solve_batch`` reports it rounded to
+    float32, a reference inconsistency); the port's stream reports the
+    stream's value.  ``interpret=`` is accepted and ignored."""
+    rng = np.random.default_rng(57)
+    c = rng.uniform(1.0, 100.0, size=(2, 128, 128)).astype(np.float32)
+    eps = 1.0 / 257
+    assert float(np.float32(eps)) != eps
+    kw = dict(eps=eps, integer=False, interpret=True)
+    want = jbatch.solve_batch_stream([jnp.asarray(c)], **kw)[0]
+    got = port.solve_batch_stream([torch.from_numpy(c)], **kw)[0]
+    assert got.eps.tolist() == want.eps.tolist() == [eps, eps]
+    np.testing.assert_array_equal(got.person_to_object,
+                                  want.person_to_object)
+    np.testing.assert_array_equal(got.nits, want.nits)
+    np.testing.assert_allclose(got.objective, want.objective, rtol=1e-6)
+    one = port.solve_batch(None, costs_device=torch.from_numpy(c),
+                           eps=eps, integer=False)
+    assert one.eps.tolist() == [float(np.float32(eps))] * 2
+    np.testing.assert_array_equal(one.person_to_object,
+                                  got.person_to_object)
 
 
 def test_beyond_the_kernel_sizes_runs_the_plain_rounds(monkeypatch):

@@ -1,14 +1,17 @@
-"""The fused dense round's plain version (``ops/dense_round.py``) against
-the JAX package's Pallas kernels in interpret mode
-(``ops/pallas_dense.py``: ``fused_dense_round_batch`` and
-``fused_dense_round``) and against the port's own plain rounds.
+"""The forward round's and the forward chunk's plain versions
+(``ops/dense_round.py``) against the JAX package's Pallas kernels in
+interpret mode (``ops/pallas_dense.py``: ``fused_dense_round_batch`` and
+``fused_dense_round``; ``batch._batch_chunk_pallas``, the Pallas round
+with its XLA eps-scaling bookkeeping) and against the port's own plain
+rounds.
 
 Inputs come from NumPy seeds.  All five outputs (prices, p2o, o2p,
 chosen, maxp) must be bit-identical (tolerance 0), from the initial state
 and from states several rounds into a solve, with instances marked done
-and a per-instance eps.  On CPU tensors the entry points run the plain
-version; the CUDA kernel is held against the same plain version on the
-card by ``chip_smoke.py``.
+and a per-instance eps; every ``ForwardState`` field of the chunk after
+1, 2, 5 and 64 rounds and at done.  On CPU tensors the entry points run
+the plain versions; the CUDA kernel is held against the same plain
+versions on the card by ``chip_smoke.py``.
 """
 
 import jax.numpy as jnp
@@ -16,8 +19,9 @@ import numpy as np
 import pytest
 import torch
 
+from sparse_linear_assignment_tpu import batch as jbatch
 from sparse_linear_assignment_tpu.ops import pallas_dense as jdense
-from sparse_linear_assignment_tpu_torch import batch
+from sparse_linear_assignment_tpu.ops.auction import ForwardState as JState
 from sparse_linear_assignment_tpu_torch.ops import dense_round as dr
 from sparse_linear_assignment_tpu_torch.ops.auction import (
     _price_at_best,
@@ -25,6 +29,7 @@ from sparse_linear_assignment_tpu_torch.ops.auction import (
     _top2_profits_dense,
     ecs_margins,
     forward_init,
+    forward_state_to_numpy,
 )
 from sparse_linear_assignment_tpu_torch.ops.dense import DenseProblem
 
@@ -48,8 +53,8 @@ def make_state(seed, b, n, m, rounds, sparse=False, dtype=np.float32):
     target = 1.0 / (n + 1)
     st = forward_init(vals, 49 / 16.0 if n == m else target)
     if rounds:
-        st, _ = batch._batch_chunk_kernel(vals, st, target, 2.0**-48,
-                                          10_000, rounds, n != m)
+        st, _ = dr.dense_chunk_reference(vals.transpose(1, 2), st, target,
+                                         2.0**-48, 10_000, rounds, n != m)
     return vals, st
 
 
@@ -175,7 +180,132 @@ def test_wrapper_rejects_bad_shapes_and_states_its_shared_memory():
     with pytest.raises(ValueError, match="float values"):
         dr.fused_dense_round_batch(vals.to(torch.int32), st.prices, st.p2o,
                                    st.o2p, st.eps, st.done)
-    assert dr.smem_bytes(256, 512) == 12 * 512 + 8 * 256 + 4096
+    assert dr.smem_bytes(256, 512) == 12 * 512 + 12 * 256
     assert dr.kernel_fits(128, 8192) and dr.kernel_fits(1024, 1024)
     assert not dr.kernel_fits(128, 20_000)
+    assert dr.LAUNCHES == 0  # CPU tensors never launch
+
+
+# ----------------------------------------------------------------------
+# the forward chunk: dense_chunk_reference against _batch_chunk_pallas
+# ----------------------------------------------------------------------
+CHUNK_CASES = {
+    "rect-128x256": dict(b=3, n=128, m=256),
+    "square-128-eps-ladder": dict(b=3, n=128, m=128),
+    "square-forced-done-and-per-instance-eps": dict(b=3, n=128, m=128,
+                                                    forced=True),
+    "rect-max-iterations-inside-a-chunk": dict(b=2, n=128, m=256,
+                                               max_iterations=3),
+    "square-max-iterations-inside-a-chunk": dict(b=2, n=128, m=128,
+                                                 max_iterations=37),
+}
+
+
+def _chunk_start(case):
+    """``vals_nm [B, N, M]`` from a NumPy seed and the initial forward
+    state of ``case`` (start eps ``49/16`` on square planes, the target
+    on rectangular ones)."""
+    kw = CHUNK_CASES[case]
+    b, n, m = kw["b"], kw["n"], kw["m"]
+    rng = np.random.default_rng(sorted(CHUNK_CASES).index(case) + 40)
+    vals_nm = torch.from_numpy(
+        -rng.integers(1, 50, size=(b, n, m)).astype(np.float32))
+    target = np.float32(1.0 / (n + 1))
+    start = np.full(b, 49 / 16.0 if n == m else target, np.float32)
+    st = forward_init(vals_nm.transpose(1, 2), torch.from_numpy(start))
+    if kw.get("forced"):
+        st = st._replace(done=torch.tensor([False, True, False]),
+                         eps=st.eps * torch.tensor([1.0, 0.5, 1.75]))
+    return vals_nm, st, target, kw.get("max_iterations", 100_000)
+
+
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_chunk_reference_matches_pallas_chunk(case):
+    vals_nm, st, target, max_it = _chunk_start(case)
+    b, n, m = vals_nm.shape
+    tol = np.float32(2.0**-47)
+    sfoe = n != m
+    js = JState(**{k: jnp.asarray(v)
+                   for k, v in forward_state_to_numpy(st).items()})
+    jv = jnp.asarray(vals_nm.transpose(1, 2).contiguous().numpy())
+    total = 0
+    for chunk in (1, 1, 3, 59) + (64,) * 20:
+        js, jdone = jbatch._batch_chunk_pallas(
+            jv, js, target, tol, max_it, chunk, sfoe, interpret=True)
+        st, done = dr.dense_chunk_reference(vals_nm, st, target, tol, max_it,
+                                            chunk, sfoe)
+        total += chunk
+        got = forward_state_to_numpy(st)
+        for name in JState._fields:
+            want = np.asarray(getattr(js, name))
+            assert got[name].dtype == want.dtype, name
+            np.testing.assert_array_equal(
+                got[name], want, err_msg=f"{case}: {name} after {total}")
+        assert bool(done) == bool(jdone)
+        if bool(done):
+            break
+    assert bool(done), (case, total)
+    if max_it < 100:
+        assert st.nits.max() == max_it
+    elif n == m:
+        assert st.nreductions.max() > 0, "the eps ladder never ran"
+    if CHUNK_CASES[case].get("forced"):
+        assert int(st.nits[1]) == 0  # done at entry: frozen
+
+
+def test_chunk_rows_count_bidders_and_margin_passes():
+    """``rows``: every round, the bidders of each live instance; in a
+    round that ends fully assigned on a square plane (an eps reduction
+    or the stop), its N rows once more for the margins.  An instance
+    done at entry reads nothing."""
+    vals_nm, st, target, _ = _chunk_start(
+        "square-forced-done-and-per-instance-eps")
+    n = vals_nm.shape[1]
+    rows = torch.zeros(3, dtype=torch.int64)
+    dr.fused_dense_chunk(vals_nm, st, target, 2.0**-47, 10_000, 1, False,
+                         rows=rows)
+    assert rows.tolist() == [n, 0, n]
+    want = torch.zeros(3, dtype=torch.int64)
+    s = st
+    while not bool(s.done.all()):
+        live = ~s.done
+        want += ((s.p2o == UNASSIGNED) & live[:, None]).sum(dim=1)
+        new, _ = dr.dense_chunk_reference(vals_nm, s, target, 2.0**-47,
+                                          10_000, 1, False)
+        margin = (new.nreductions > s.nreductions) | (new.done & live)
+        want += n * margin
+        s = new
+    rows = torch.zeros(3, dtype=torch.int64)
+    got, _ = dr.fused_dense_chunk(vals_nm, st, target, 2.0**-47, 10_000,
+                                  10_000, False, rows=rows)
+    assert torch.equal(got.p2o, s.p2o) and torch.equal(got.nits, s.nits)
+    assert torch.equal(rows, want) and int(rows[1]) == 0
+
+
+def test_chunk_wrapper_checks_shapes_dtypes_and_devices():
+    vals_nm, st, target, _ = _chunk_start("rect-128x256")
+    args = (target, 2.0**-47, 100, 4, True)
+    with pytest.raises(ValueError, match=r"\[B, N, M\]"):
+        dr.fused_dense_chunk(vals_nm[0], st, *args)
+    with pytest.raises(ValueError, match="float values"):
+        dr.fused_dense_chunk(vals_nm.to(torch.int32), st, *args)
+    with pytest.raises(ValueError, match="states.prices has shape"):
+        dr.fused_dense_chunk(vals_nm, st._replace(prices=st.prices[:, :3]),
+                             *args)
+    with pytest.raises(ValueError, match="states.done has shape"):
+        dr.fused_dense_chunk(vals_nm, st._replace(done=st.done[:2]), *args)
+    with pytest.raises(ValueError, match="rows must be"):
+        dr.fused_dense_chunk(vals_nm, st, *args,
+                             rows=torch.zeros(3, dtype=torch.int32))
+    meta = vals_nm.to("meta")
+    with pytest.raises(ValueError, match="states.prices is on cpu"):
+        dr.fused_dense_chunk(meta, st, *args)
+    on_meta = type(st)(*(x.to("meta") for x in st))
+    with pytest.raises(ValueError, match="runs on cpu or cuda, not meta"):
+        dr.fused_dense_chunk(meta, on_meta, *args)
+    # float64 on the CPU runs the plain version; the kernel is float32
+    got, _ = dr.fused_dense_chunk(
+        vals_nm.double(), type(st)(*(x.double() if x.is_floating_point()
+                                     else x for x in st)), *args)
+    assert got.prices.dtype == torch.float64
     assert dr.LAUNCHES == 0  # CPU tensors never launch

@@ -252,3 +252,22 @@ def test_fr_big_chunk_phase_cycles_are_cuda_only():
         fr_big.fr_big_chunk(tv, batch.fr_init(tv, 1.0 / n), 1,
                             phase_cycles=torch.zeros(
                                 len(fr_big.PHASES), dtype=torch.int64))
+
+
+def test_big_single_limit_raises_before_staging(monkeypatch):
+    """A big single beyond the kernel's shared memory raises the
+    planner's ``ValueError`` from the route, before anything is staged;
+    nothing falls back.  The limit is shrunk so that 2048² trips it."""
+    monkeypatch.setattr(fr_big, "MAX_SMEM_BYTES", 20_000)
+    staged = []
+    real_stage = batch._stage
+    monkeypatch.setattr(batch, "_stage", lambda *a: staged.append(1)
+                        or real_stage(*a))
+    costs = torch.zeros((1, 2048, 2048), dtype=torch.float32)
+    with pytest.raises(ValueError, match="shared-memory limit"):
+        port.solve_batch(None, costs_device=costs, eps=1.0 / 2049)
+    with pytest.raises(ValueError, match="largest side is"):
+        port.solve_batch_stream([costs], eps=1.0 / 2049)
+    assert staged == []
+    monkeypatch.setattr(fr_big, "MAX_SMEM_BYTES", 232_448)
+    assert batch._route(1, 2048, 2048, np.float32, None) == "big"

@@ -108,6 +108,42 @@ def test_fr_chunk_rejects_bad_shapes():
                            s0, 1)
 
 
+def test_fr_chunk_checks_its_counter_arguments():
+    """``phase_cycles`` and ``stamps`` read the CUDA kernel's clocks: on
+    CPU tensors they raise; elsewhere each must be a contiguous int64
+    tensor of its shape on the values' device (checked on the meta
+    device, which runs nothing)."""
+    values_t, eps = _values("int", 128)
+    tv = torch.from_numpy(values_t)
+    s0 = fr_init(tv, torch.tensor(eps, dtype=torch.int32))
+    n_phases = len(fr_kernel.PHASES)
+    assert fr_kernel.PHASES[-2:] == ("total", "rounds")
+    for kw in ({"phase_cycles": torch.zeros(n_phases, dtype=torch.int64)},
+               {"stamps": torch.zeros((B, 2), dtype=torch.int64)}):
+        with pytest.raises(ValueError, match="plain version has none"):
+            fr_kernel.fr_chunk(tv, s0, 1, **kw)
+    mv = tv.to("meta")
+    ms0 = type(s0)(*(x.to("meta") for x in s0))
+
+    def meta(shape, dtype=torch.int64):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    for kw in ({"phase_cycles": meta(n_phases - 1)},
+               {"phase_cycles": meta(n_phases, torch.int32)},
+               {"phase_cycles": torch.zeros(n_phases, dtype=torch.int64)},
+               {"stamps": meta((B, 3))},
+               {"stamps": meta((2, B)).t()},
+               {"stamps": meta((B, 2), torch.float32)}):
+        name = next(iter(kw))
+        with pytest.raises(ValueError, match=f"{name} must be a contiguous "
+                                             f"int64"):
+            fr_kernel.fr_chunk(mv, ms0, 1, **kw)
+    with pytest.raises(ValueError, match="runs on cpu or cuda, not meta"):
+        fr_kernel.fr_chunk(mv, ms0, 1, phase_cycles=meta(n_phases),
+                           stamps=meta((B, 2)))
+    assert fr_kernel.LAUNCHES == 0  # CPU tensors never launch
+
+
 def test_cuda_request_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
