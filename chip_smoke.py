@@ -21,6 +21,7 @@ drives the port's paths through ``solve_batch``:
   instances of 128 persons x 512 objects with 8 arcs per person, made
   and staged on the card (``stage_batch_sparse_device``) and streamed
   (``solve_batch_sparse_stream``), scipy's objective on a sample; the
+  kernel's time beside its bound, its phase split and CTA timeline; the
   host-staged path with column compaction (``solve_batch_sparse``) on
   1024 x (256 x 2048, k = 8); a batch with infeasible instances;
 - the forward engine on the fused round kernel: 4096 instances of
@@ -216,21 +217,26 @@ def phase_breakdown(batch, fr_kernel, fr_init, costs, scale, rounds,
           "kernel_share_of_sum": t["kernel_ms"] / total})
 
 
-def fr_kernel_split(fr_kernel, cyc, stamps, nits):
-    """The batched FR kernel's phase counters as shares of its CTAs'
-    round cycles, and its timeline from the CTAs' global-timer stamps:
-    when the last CTA started (the waves), when half and all had ended,
-    and the instance with the most rounds (the straggler)."""
-    c = dict(zip(fr_kernel.PHASES, cyc.tolist()))
+def kernel_split(phases, cyc, stamps, nits):
+    """A one-CTA-per-instance kernel's phase counters (``phases``, ending
+    in ``total`` and ``rounds``) as shares of its CTAs' round cycles, and
+    its timeline from the CTAs' global-timer stamps: when the last CTA
+    started (the waves), when half and all had ended, and the instance
+    with the most rounds (the straggler); and a least-squares line of a
+    CTA's time against its rounds (``per_round_us``, what one more round
+    costs, and ``fixed_us``)."""
+    c = dict(zip(phases, cyc.tolist()))
     st = stamps.cpu().numpy().astype(np.float64)
     t0 = st[:, 0].min()
     start = (st[:, 0] - t0) / 1e6
     end = (st[:, 1] - t0) / 1e6
     n = nits.cpu().numpy()
     k = int(n.argmax())
+    per_round, fixed = np.polyfit(n.astype(np.float64), (end - start) * 1e3,
+                                  1)
     return {
-        "cycle_share": {p: c[p] / c["total"] for p in (
-            "bids", "apply", "control", "barrier_wait")},
+        "cycle_share": {p: c[p] / c["total"] for p in phases
+                        if p not in ("total", "rounds")},
         "cycles": c, "cycles_per_round": c["total"] / c["rounds"],
         "timeline_ms": {"span": float(end.max()),
                         "last_start": float(start.max()),
@@ -240,6 +246,8 @@ def fr_kernel_split(fr_kernel, cyc, stamps, nits):
                                       "end": float(end[k])}},
         "us_per_round_median": float(np.median(
             (end - start) * 1e3 / np.maximum(n, 1))),
+        "cta_time_fit": {"per_round_us": float(per_round),
+                         "fixed_us": float(fixed)},
     }
 
 
@@ -621,11 +629,16 @@ def ksp_active(s):
 def phase_ksp_kernel_vs_plain(port, batch, ksp):
     """The Khosla kernel against its plain version, bit for bit, on
     every KhoslaState field and the active-row counts, after 1, 2 and 5
-    rounds and at done."""
+    rounds and at done.  Every launch after the first enters with
+    assigned persons and the stale ``o2p`` the kernel passes through, so
+    the kernel rebuilds its owner map from ``p2o``; the mid-solve case
+    enters the first launch that way too, with ``o2p`` filled with
+    noise."""
     gen = torch.Generator(device="cuda")
     planes = []
 
-    def staged_on_card(name, b, n, m, k, lo, hi, eps, infeasible=0):
+    def staged_on_card(name, b, n, m, k, lo, hi, eps, infeasible=0,
+                       mid_solve=0):
         gen.manual_seed(SEED + b + n + m + hi)
         cols, vals = device_arcs(gen, b, n, m, k, lo, hi)
         if infeasible:
@@ -633,8 +646,19 @@ def phase_ksp_kernel_vs_plain(port, batch, ksp):
             cols[:infeasible] = -1
             cols[:infeasible, :, 0] = 0
         st = port.stage_batch_sparse_device(cols, vals, m, eps=eps)
-        planes.append((name, st.values_nm, st.thresholds,
-                       np.float32(st.eps_val), infeasible))
+        eps32 = np.float32(st.eps_val)
+        start = ksp.khosla_init(st.values_nm)
+        if mid_solve:
+            # the plain version's state after `mid_solve` rounds
+            start = ksp.ksp_chunk_reference(st.values_nm, start, eps32,
+                                            st.thresholds, mid_solve)
+            start = start._replace(o2p=torch.randint(
+                -1, n, start.o2p.shape, generator=gen, device="cuda",
+                dtype=torch.int32))
+            assert bool((start.p2o != 2**31 - 1).any()), name
+            assert bool(ksp_active(start).any()), name
+        planes.append((name, st.values_nm, st.thresholds, eps32,
+                       infeasible, start))
 
     staged_on_card("256x(128x512,k=8)", 256, 128, 512, 8, 300, 1000,
                    1.0 / 512)
@@ -644,6 +668,19 @@ def phase_ksp_kernel_vs_plain(port, batch, ksp):
                    1, 4, 1.0 / 512)
     staged_on_card("8 infeasible of 64x(32x128,k=4)", 64, 32, 128, 4, 1, 5,
                    0.5, infeasible=8)
+    # N == M': every round displaces owners
+    staged_on_card("square 64x(128x128,k=16)", 64, 128, 128, 16, 1, 100,
+                   0.125)
+    # the narrowest plane: one warp's width
+    staged_on_card("narrowest 256x(24x32,k=6)", 256, 24, 32, 6, 300, 1000,
+                   1.0 / 32)
+    staged_on_card("mid-solve from 2 plain rounds, noisy o2p, "
+                   "64x(128x512,k=8)", 64, 128, 512, 8, 300, 1000,
+                   1.0 / 512, mid_solve=2)
+    # about the widest plane whose state fits a block: 148 groups of
+    # 16-byte loads a row
+    staged_on_card("widest tie-heavy [1,4) 2x(128x18944,k=8)", 2, 128,
+                   18944, 8, 1, 4, 1.0 / 18944)
     # n not a multiple of 8, plane compacted on the host
     hc, hv = port.generators.gen_batch_ksparse(SEED, 32, 100, 700, 6)
     hst = port.stage_batch_sparse(hc, hv, 700)
@@ -651,12 +688,13 @@ def phase_ksp_kernel_vs_plain(port, batch, ksp):
     assert width & (width - 1), ("expected a width off the powers of two",
                                  width)
     planes.append(("host-compacted 32x(100x700,k=6)", hst.values_nm,
-                   hst.thresholds, np.float32(hst.eps_val), 0))
+                   hst.thresholds, np.float32(hst.eps_val), 0,
+                   ksp.khosla_init(hst.values_nm)))
 
     cases = []
-    for name, plane, thr, eps, infeasible in planes:
+    for name, plane, thr, eps, infeasible, start in planes:
         b, n, mp = plane.shape
-        got = want = ksp.khosla_init(plane)
+        got = want = start
         rows_k = torch.zeros(b, dtype=torch.int64, device="cuda")
         rows_p = torch.zeros(b, dtype=torch.int64, device="cuda")
         total = 0
@@ -687,6 +725,9 @@ def phase_ksp_kernel_vs_plain(port, batch, ksp):
     emit({"phase": "ksp_kernel_vs_plain", "kernel": "ksp_kernel",
           "checkpoints": "after 1, 2, 5 rounds, then every 64 to done, "
                          "then once more from the done state",
+          "entry": "each launch with the o2p it passed through; the "
+                   "mid-solve case from the plain version's state with "
+                   "o2p noise",
           "cases": cases, "tolerance": 0, "max_abs_err": 0.0,
           "fields": "prices, p2o, o2p, dropped, nits + act_rows, "
                     "bit-exact"})
@@ -848,7 +889,9 @@ def phase_sparse_stream_split(port, batch, staged):
 def phase_ksp_kernel_time(batch, ksp, staged):
     """The Khosla kernel at the main path's shape: CUDA-event time of one
     launch from the initial state, the plain version on the same input
-    for the same rounds, and the bound."""
+    for the same rounds, and the bound; the leader thread's cycles a
+    round by phase and the CTA timeline from a launch with the counters
+    on (``counted_ms`` its time)."""
     st = staged[0]
     plane, thr = st.values_nm, st.thresholds
     eps = np.float32(st.eps_val)
@@ -856,11 +899,18 @@ def phase_ksp_kernel_time(batch, ksp, staged):
     budget = batch._SPARSE_KERNEL_BUDGET
     s0 = ksp.khosla_init(plane)
     rows = torch.zeros(b, dtype=torch.int64, device="cuda")
-    got = ksp.ksp_chunk(plane, s0, eps, thr, budget, act_rows=rows)
+    cyc = torch.zeros(len(ksp.PHASES), dtype=torch.int64, device="cuda")
+    stamps = torch.zeros((b, 2), dtype=torch.int64, device="cuda")
+    got = ksp.ksp_chunk(plane, s0, eps, thr, budget, act_rows=rows,
+                        phase_cycles=cyc, stamps=stamps)
     assert not bool(ksp_active(got).any()), "not done within the budget"
     act_rows = int(rows.sum())
     kernel_ms = event_ms(
         lambda: ksp.ksp_chunk(plane, s0, eps, thr, budget), reps=5)
+    counted_ms = event_ms(lambda: ksp.ksp_chunk(
+        plane, s0, eps, thr, budget, phase_cycles=torch.zeros_like(cyc),
+        stamps=torch.zeros_like(stamps)), reps=3)
+    split = kernel_split(ksp.PHASES, cyc, stamps, got.nits)
     plain_ms, want = sync_ms(
         lambda: ksp.ksp_chunk_reference(plane, s0, eps, thr, budget))
     bad = ksp_states_equal(got, want)
@@ -886,6 +936,7 @@ def phase_ksp_kernel_time(batch, ksp, staged):
           "bound_ops_ms": bound_ops_ms, "act_rows": act_rows,
           "active_row_bytes": row_bytes,
           "active_row_bound_ms": row_bytes / HBM_BYTES_PER_S * 1e3,
+          "counted_ms": counted_ms, **split,
           "library_ms": None, "plain_bit_exact": True})
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "max_abs_err": err}
@@ -1501,7 +1552,7 @@ def main() -> int:
     counted_ms = event_ms(lambda: fr_kernel.fr_chunk(
         vt, s0, rounds0, values=work, phase_cycles=torch.zeros_like(cyc),
         stamps=torch.zeros_like(stamps)), reps=3)
-    split = fr_kernel_split(fr_kernel, cyc, stamps, got.nits)
+    split = kernel_split(fr_kernel.PHASES, cyc, stamps, got.nits)
     plain_ms, (want, _) = sync_ms(
         lambda: fr_kernel.fr_chunk_reference(vt, s0, rounds0)
     )

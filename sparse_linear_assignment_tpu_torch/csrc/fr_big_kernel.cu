@@ -130,16 +130,6 @@ struct Partial {
   int32_t bidder;
 };
 
-// Append `flag`ged indices of one warp to a list with one atomic per warp.
-__device__ __forceinline__ void warp_append(bool flag, int x, int lane,
-                                            int32_t* list, int* count) {
-  const unsigned ball = __ballot_sync(kFull, flag);
-  int slot = 0;
-  if (lane == 0 && ball) slot = atomicAdd(count, __popc(ball));
-  slot = __shfl_sync(kFull, slot, 0);
-  if (flag) list[slot + __popc(ball & ((1u << lane) - 1u))] = x;
-}
-
 // 64-bit atomic max on a word of another CTA's shared memory.  On the
 // H100 a 64-bit max on distributed shared memory (atomicMax through
 // map_shared_rank, or atom/red.shared::cluster.max.u64) is not atomic

@@ -1,7 +1,8 @@
 // Pieces shared by the auction kernels (fr_kernel.cu, fr_big_kernel.cu,
 // ksp_kernel.cu): the sentinels, the order-preserving value images, the
 // float top-2 with its tie rule (a lane's running top-2, the warp merge,
-// the warp-wide top2), and the 64-bit conflict key.
+// both also in a form that carries the row's value at argbest, the
+// warp-wide top2), the 64-bit conflict key, and a warp's list append.
 
 #pragma once
 
@@ -85,6 +86,48 @@ __device__ __forceinline__ void top2_warp_merge(float& b, float& s, int& j) {
     b = take1 ? b : b2;
     j = take1 ? j : j2;
   }
+}
+
+// top2_take that also keeps `raw`, the row's value at the lane's best
+// position, so that the value at argbest needs no second load.
+__device__ __forceinline__ void top2_take_raw(float v, float raw, int r,
+                                              float& b, float& s, int& j,
+                                              float& bv) {
+  if (v > b) {
+    s = fmaxf(s, b);
+    b = v;
+    j = r;
+    bv = raw;
+  } else {
+    s = fmaxf(s, v);
+  }
+}
+
+// top2_warp_merge carrying the raw value at argbest with it.
+__device__ __forceinline__ void top2_warp_merge_raw(float& b, float& s,
+                                                    int& j, float& bv) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float b2 = __shfl_xor_sync(kFull, b, off);
+    const int j2 = __shfl_xor_sync(kFull, j, off);
+    const float s2 = __shfl_xor_sync(kFull, s, off);
+    const float bv2 = __shfl_xor_sync(kFull, bv, off);
+    const bool take1 = (b > b2) || (b == b2 && j <= j2);
+    s = fmaxf(fminf(b, b2), fmaxf(s, s2));
+    b = take1 ? b : b2;
+    j = take1 ? j : j2;
+    bv = take1 ? bv : bv2;
+  }
+}
+
+// Append `flag`ged indices of one warp to a list with one atomic per warp.
+__device__ __forceinline__ void warp_append(bool flag, int x, int lane,
+                                            int32_t* list, int* count) {
+  const unsigned ball = __ballot_sync(kFull, flag);
+  int slot = 0;
+  if (lane == 0 && ball) slot = atomicAdd(count, __popc(ball));
+  slot = __shfl_sync(kFull, slot, 0);
+  if (flag) list[slot + __popc(ball & ((1u << lane) - 1u))] = x;
 }
 
 // Warp-wide top-2 of row[r] - rowp[r] over r < S.  Every lane returns

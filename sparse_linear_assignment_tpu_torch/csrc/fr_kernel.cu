@@ -159,16 +159,6 @@ template <typename T> struct Vec4;
 template <> struct Vec4<float> { using type = float4; };
 template <> struct Vec4<int32_t> { using type = int4; };
 
-// Append `flag`ged indices of one warp to a list with one atomic per warp.
-__device__ __forceinline__ void warp_append(bool flag, int x, int lane,
-                                            int32_t* list, int* count) {
-  const unsigned ball = __ballot_sync(kFull, flag);
-  int slot = 0;
-  if (lane == 0 && ball) slot = atomicAdd(count, __popc(ball));
-  slot = __shfl_sync(kFull, slot, 0);
-  if (flag) list[slot + __popc(ball & ((1u << lane) - 1u))] = x;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSm)
 fr_rounds_kernel(const T* __restrict__ vals, const T* __restrict__ vals_t,

@@ -161,18 +161,7 @@ def fr_chunk(values_t, states: FRState, rounds: int, values=None,
     ``[B, 2]`` tensor, receives each CTA's start and end on the card's
     global timer (nanoseconds)."""
     check_state(values_t, states)
-    b = values_t.shape[0]
-    for name, t, shape in (("phase_cycles", phase_cycles, (len(PHASES),)),
-                           ("stamps", stamps, (b, 2))):
-        if t is None:
-            continue
-        if values_t.device.type == "cpu":
-            raise ValueError(f"{name} counts the CUDA kernel's clock; the "
-                             f"plain version has none")
-        if (t.dtype != torch.int64 or tuple(t.shape) != shape
-                or t.device != values_t.device or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous int64 "
-                             f"{list(shape)} tensor on the values' device")
+    check_counters(values_t, len(PHASES), phase_cycles, stamps)
     if values_t.device.type == "cpu":
         return fr_chunk_reference(values_t, states, rounds, bid_rows)
     if values_t.device.type != "cuda":
@@ -180,6 +169,25 @@ def fr_chunk(values_t, states: FRState, rounds: int, values=None,
                          f"{values_t.device}")
     return _fr_chunk_cuda(values_t, states, rounds, values, bid_rows,
                           phase_cycles, stamps)
+
+
+def check_counters(values, n_phases: int, phase_cycles, stamps) -> None:
+    """Raise unless ``phase_cycles`` and ``stamps`` are each None or a
+    contiguous int64 tensor (``[n_phases]``, ``[B, 2]``) on the device
+    of the batch ``values``, and not on the CPU, where the plain
+    versions run and have no clock."""
+    b = values.shape[0]
+    for name, t, shape in (("phase_cycles", phase_cycles, (n_phases,)),
+                           ("stamps", stamps, (b, 2))):
+        if t is None:
+            continue
+        if values.device.type == "cpu":
+            raise ValueError(f"{name} counts the CUDA kernel's clock; the "
+                             f"plain version has none")
+        if (t.dtype != torch.int64 or tuple(t.shape) != shape
+                or t.device != values.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int64 "
+                             f"{list(shape)} tensor on the values' device")
 
 
 def _fr_chunk_cuda(values_t, states, rounds, values, bid_rows, phase_cycles,

@@ -14,29 +14,43 @@ What bounds it on an H100.  The first round reads every person's row,
 so the plane is read once (1 GiB at 4096 x 128 x 512 float32); later
 rounds read only the rows of the persons still active, and the
 arithmetic is a subtract and two compares per element.  The kernel is
-bound by those bytes and, in its last rounds, by the latency of a round
-with one or two bidders.  The design against that:
+bound by those bytes, which need many loads in flight on every SM, and,
+after the last instances start, by the latency of their rounds with one
+or two bidders.  The first port (one warp walking a row in 4-byte
+loads, a dependent reload of the best value, three barriers and passes
+over every person and object a round, 256 threads) kept about one
+128-byte line in flight a warp.  The design against that:
 
-- one CTA of 256 threads per instance; prices, one 64-bit conflict key
-  per object, ``p2o``, ``dropped`` and the round's choices stay in
-  shared memory for the whole loop (12 bytes per object, 13 per
-  person), so a round's only device-memory traffic is its active rows;
-- one warp per active person reads that person's row, coalesced, takes
-  the top-2 with the smallest-index tie rule (``csrc/fr_common.cuh``)
-  and posts its bid with one ``atomicMax`` on the object's key; a
-  displaced owner is found by a plain indexed read of its object's key;
+- one CTA of 128 threads per instance, 8 resident on an SM (64
+  registers a thread, no spills); prices,
+  one 64-bit key per object, ``p2o``, ``dropped``, two active lists and
+  the round's targets stay in shared memory for the whole loop (12
+  bytes per object, 17 per person), so a round's only device-memory
+  traffic is its active rows;
+- one warp per active person issues the row's 16-byte loads, four a
+  lane in flight (the whole 2 KB row at M' = 512) before it folds any,
+  takes the top-2 with the smallest-index tie rule
+  (``csrc/fr_common.cuh``) carrying the row's value at the best object
+  through the merge (no second load), and posts its bid with one
+  ``atomicMax`` on the object's key;
+- between rounds a key rests at its object's owner, so the one bid that
+  finds it at rest displaces the owner, and the apply pass walks only
+  the round's entries: two barriers a round and no pass over all
+  persons or objects; ``o2p`` is not read;
 - the TPU kernel's lane-halving trees, coded won/displaced reduction,
   packed ``[8, M]`` and ``[8, 128]`` refs and plane resident on chip are
   not carried over: one 128 x 512 float32 instance is 256 KB, more than
   the 227 KB of shared memory a block can use, and rounds after the
-  first touch few rows;
-- several instances per SM hide one instance's round latency.
+  first touch few rows.
 
-Limits: float32 values; ``12 M' + 13 N`` bytes of shared memory within
-``MAX_SMEM_BYTES`` (an instance of 128 persons may have up to about
-19,000 objects).  The plane width ``M'`` is free; the staging code pads
-it to a multiple of ``PLANE_ALIGN`` values so that every row starts on a
-128-byte line.
+``phase_cycles`` splits the leader thread's cycles by phase; ``stamps``
+gives each CTA's start and end, the waves and the straggler.  Limits:
+float32 values; ``M'`` a multiple of 4 (16-byte rows); ``12 M' + 17 N``
+bytes of shared memory within ``MAX_SMEM_BYTES`` (an instance of 128
+persons may have up to about 19,000 objects).  The staging code pads the
+plane width to a multiple of ``PLANE_ALIGN`` values so that every row
+starts on a 128-byte line.  ``p2o`` must be a matching (no object owned
+twice), as every state of the rounds is.
 
 On CPU tensors :func:`ksp_chunk` runs the plain PyTorch version
 :func:`ksp_chunk_reference`; on CUDA tensors it launches the kernel or
@@ -53,6 +67,7 @@ from ..solution import UNASSIGNED
 from . import _build
 from .auction import KhoslaState, khosla_round
 from .dense import DenseProblem
+from .fr_kernel import check_counters
 
 #: kernel launches made by :func:`ksp_chunk` in this process
 LAUNCHES = 0
@@ -67,28 +82,44 @@ MAX_SMEM_BYTES = 232_448
 #: one gives the same result.
 PLANE_ALIGN = 32
 
+#: the phase counters of ``phase_cycles``, in order: clock64 cycles of
+#: each CTA's thread 0 summed over CTAs (``active`` listing the active
+#: persons, once at entry; ``bids`` the row loads, top-2s, drops, bids
+#: and displacements; ``apply`` the winners, prices and the next list;
+#: ``prices`` a separate price and key pass, which this design does not
+#: have (``tools/ksp_kernel_three_pass.cu``, the first port, charges all four
+#: every round); ``barrier_wait`` the time in block barriers; ``total``
+#: the entry pass and the rounds), and the rounds run
+PHASES = ("active", "bids", "apply", "prices", "barrier_wait", "total",
+          "rounds")
+
 _lib = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``ksp_kernel`` library (also
+    used for the variant builds of ``tools/ksp_kernel_variants.py``)."""
+    p = ctypes.c_void_p
+    lib.slap_ksp_rounds.argtypes = [
+        p, p, p, p, p, p, p, p, p, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
+    ]
+    lib.slap_ksp_rounds.restype = ctypes.c_int
+    lib.slap_ksp_error_string.argtypes = [ctypes.c_int]
+    lib.slap_ksp_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = _build.load("ksp_kernel")
-        p = ctypes.c_void_p
-        lib.slap_ksp_rounds.argtypes = [
-            p, p, p, p, p, p, p, ctypes.c_float,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
-        ]
-        lib.slap_ksp_rounds.restype = ctypes.c_int
-        lib.slap_ksp_error_string.argtypes = [ctypes.c_int]
-        lib.slap_ksp_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(_build.load("ksp_kernel"))
     return _lib
 
 
 def smem_bytes(n: int, m: int) -> int:
     """Shared memory the kernel needs for one ``n x m`` instance."""
-    return 12 * m + 13 * n
+    return 12 * m + 17 * n
 
 
 def khosla_init(values_nm: torch.Tensor) -> KhoslaState:
@@ -164,26 +195,35 @@ def ksp_chunk_reference(values_nm, states: KhoslaState, eps, thresholds,
 
 
 def ksp_chunk(values_nm, states: KhoslaState, eps, thresholds,
-              rounds: int, act_rows=None) -> KhoslaState:
+              rounds: int, act_rows=None, phase_cycles=None,
+              stamps=None) -> KhoslaState:
     """Up to ``rounds`` fused Khosla rounds over a batched
     :class:`KhoslaState` on the densified person-major plane
     ``values_nm [B, N, M']`` (float32).  ``eps`` is a scalar,
     ``thresholds [B]`` the drop thresholds.  Every person needs at least
     one arc (a finite value): the staging functions check it.  CPU
     tensors run :func:`ksp_chunk_reference`; CUDA tensors launch the
-    kernel."""
+    kernel.
+
+    Measurement (CUDA tensors only: the plain version has no clock):
+    ``phase_cycles``, a contiguous int64 tensor of ``len(PHASES)``,
+    gains the kernel's phase counters; ``stamps``, a contiguous int64
+    ``[B, 2]`` tensor, receives each CTA's start and end on the card's
+    global timer (nanoseconds)."""
+    check_state(values_nm, states, thresholds)
+    check_counters(values_nm, len(PHASES), phase_cycles, stamps)
     if values_nm.device.type == "cpu":
         return ksp_chunk_reference(values_nm, states, eps, thresholds,
                                    rounds, act_rows)
-    check_state(values_nm, states, thresholds)
     if values_nm.device.type != "cuda":
         raise ValueError(f"ksp_chunk runs on cpu or cuda, not "
                          f"{values_nm.device}")
     return _ksp_chunk_cuda(values_nm, states, eps, thresholds, rounds,
-                           act_rows)
+                           act_rows, phase_cycles, stamps)
 
 
-def _ksp_chunk_cuda(values_nm, states, eps, thresholds, rounds, act_rows):
+def _ksp_chunk_cuda(values_nm, states, eps, thresholds, rounds, act_rows,
+                    phase_cycles, stamps):
     global LAUNCHES
     b, n, m = values_nm.shape
     if values_nm.dtype != torch.float32:
@@ -194,11 +234,17 @@ def _ksp_chunk_cuda(values_nm, states, eps, thresholds, rounds, act_rows):
     if need > MAX_SMEM_BYTES:
         raise ValueError(
             f"a {n}x{m} instance needs {need} bytes of shared memory "
-            f"(12 per object, 13 per person), more than the "
+            f"(12 per object, 17 per person), more than the "
             f"{MAX_SMEM_BYTES} a block can use"
         )
     _check_act_rows(act_rows, b, values_nm.device)
     vals = values_nm.contiguous()
+    if m % 4 or vals.data_ptr() % 16:
+        raise ValueError(f"the Khosla kernel reads rows in 16-byte loads: "
+                         f"the plane width ({m}) must be a multiple of 4 "
+                         f"and the plane 16-byte aligned (the staging "
+                         f"functions pad it to a multiple of "
+                         f"{PLANE_ALIGN})")
     prices = states.prices.to(torch.float32).contiguous().clone()
     p2o = states.p2o.to(torch.int32).contiguous().clone()
     dropped = states.dropped.to(torch.bool).contiguous().clone()
@@ -211,6 +257,8 @@ def _ksp_chunk_cuda(values_nm, states, eps, thresholds, rounds, act_rows):
             vals.data_ptr(), prices.data_ptr(), p2o.data_ptr(),
             dropped.data_ptr(), nits.data_ptr(), thr.data_ptr(),
             act_rows.data_ptr() if act_rows is not None else None,
+            phase_cycles.data_ptr() if phase_cycles is not None else None,
+            stamps.data_ptr() if stamps is not None else None,
             float(eps), b, n, m, int(rounds), stream,
         )
     if rc != 0:

@@ -126,7 +126,8 @@ def main() -> int:
             assert not bad, (name, bad)
             ms = cs.event_ms(lambda: fr_kernel.fr_chunk(
                 vt, s0, rounds, values=work), reps=5)
-            split = cs.fr_kernel_split(fr_kernel, cyc, stamps, got.nits)
+            split = cs.kernel_split(fr_kernel.PHASES, cyc, stamps,
+                                    got.nits)
             print(json.dumps({"variant": name, "ms": ms,
                               "cycle_share": split["cycle_share"],
                               "cycles_per_round": split["cycles_per_round"],
