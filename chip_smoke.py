@@ -28,7 +28,17 @@ drives the port's paths through ``solve_batch``:
   256 persons x 512 objects through ``solve_batch`` (``solver="auto"``,
   scipy's objective on a sample), the eps-scaling path on 512 x 256²
   (``solver="forward"``), rectangular ``linear_sum_assignment``; the
-  Khosla engine and the plain-rounds FR route (float64, N % 128 != 0).
+  Khosla engine and the plain-rounds FR route (float64, N % 128 != 0);
+- the reference-crate API, which runs no kernel of the port (plain
+  PyTorch rounds, graphed, and the native engine): the README example on
+  every engine, the error probes and infeasible instances; the
+  n = 100,000 headline (``bench.py:169-270``) on the native ladder, the
+  hybrid and the device route, each against scipy's
+  ``min_weight_full_bipartite_matching`` with its eps-CS certificate,
+  and a full-scan and a slot-list chunk bit-equal on the card and the
+  CPU; the reference crate's bench configs B (2,000 x 60,000, k = 32)
+  and A (n = 10,000, density 1%), native and on the card;
+  ``solve_batch_sparse(engine="padded")`` beside ``"dense"``.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -1426,6 +1436,369 @@ def phase_dense_chunk_time(dr, forward_init):
             "single_round_ms": single_ms}
 
 
+# ----------------------------------------------------------------------
+# the reference-crate API for one sparse instance (no kernel of its own:
+# the JAX package runs these engines as plain XLA, the port as plain
+# PyTorch, chunks replayed as CUDA graphs)
+# ----------------------------------------------------------------------
+#: the new phases' sizes (module constants so that a rehearsal on the
+#: CPU can shrink them): the headline n, config B (persons, objects,
+#: arcs a person), config A's n, the sparse-host batch
+HEADLINE_N = 100_000
+CONFIG_B = (2000, 60000, 32)
+CONFIG_A_N = 10_000
+SPARSE_HOST = (1024, 256, 2048, 8)
+
+
+def kernel_counts(mods) -> dict:
+    return {m.__name__.rsplit(".", 1)[-1]: m.LAUNCHES for m in mods}
+
+
+def zero_counts(mods) -> None:
+    for m in mods:
+        m.LAUNCHES = 0
+
+
+def wall_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def csr_original_units(solver):
+    """The solver's arcs as a scipy CSR matrix in the caller's units."""
+    from scipy.sparse import csr_matrix
+
+    vals = np.asarray(solver.values, dtype=np.float64)
+    if vals.size and vals[0] < 0:
+        vals = -vals
+    return csr_matrix((vals, solver.column_indices.astype(np.int64),
+                       solver.i_starts_stops.astype(np.int64)),
+                      shape=(solver.num_rows, solver.num_cols))
+
+
+def scipy_sparse_optimum(solver):
+    """``min_weight_full_bipartite_matching``'s objective and seconds."""
+    from scipy.sparse.csgraph import min_weight_full_bipartite_matching
+
+    mat = csr_original_units(solver)
+    t0 = time.perf_counter()
+    rows, cols = min_weight_full_bipartite_matching(mat)
+    secs = time.perf_counter() - t0
+    return float(np.asarray(mat[rows, cols]).sum()), secs
+
+
+def ecs_worst(solver, solution):
+    """The largest eps-CS violation ``max_profit - eps - chosen_profit``
+    over the persons (<= 0 where the certificate holds with no slack)."""
+    vals = np.asarray(solver.values, dtype=np.float64)
+    cols = solver.column_indices.astype(np.int64)
+    rows = np.repeat(np.arange(solver.num_rows),
+                     solver.j_counts.astype(np.int64))
+    profit = vals - solver.prices[cols]
+    maxp = np.full(solver.num_rows, -np.inf)
+    np.maximum.at(maxp, rows, profit)
+    p2o = solution.person_to_object.astype(np.int64)
+    chosen = np.full(solver.num_rows, -np.inf)
+    hit = cols == p2o[rows]
+    np.maximum.at(chosen, rows[hit], profit[hit])
+    return float(np.max(maxp - solution.eps - chosen))
+
+
+class Breakdown:
+    """Seconds and calls of named module functions, each ended by a
+    device sync, while the context is open (a breakdown run only)."""
+
+    def __init__(self, targets):
+        self.targets = targets  # [(module, name)]
+        self.secs = {}
+        self.calls = {}
+        self.saved = []
+
+    def __enter__(self):
+        for mod, name in self.targets:
+            real = getattr(mod, name)
+            self.saved.append((mod, name, real))
+
+            def timed(*a, _real=real, _name=name, **k):
+                t0 = time.perf_counter()
+                out = _real(*a, **k)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                self.secs[_name] = self.secs.get(_name, 0.0) + dt
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                return out
+
+            setattr(mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+
+
+def readme_solvers(port, dtype=np.float64):
+    out = []
+    for cls in (port.KhoslaSolver, port.ForwardAuctionSolver):
+        solver, solution = cls.new(10, 10, 100, dtype=dtype)
+        solver.init(2, 4)
+        for i, row in enumerate([[10, 6, 14, 1], [17, 18, 16]]):
+            solver.extend_from_values(i, range(len(row)), row)
+        out.append((solver, solution))
+    return out
+
+
+def phase_reference_api(port, mods, card):
+    """The README 2x4 example on both solvers over every engine, the
+    error probes, and an infeasible instance on each solver."""
+    zero_counts(mods)
+    unassigned = port.UNASSIGNED
+    routes = {
+        "KhoslaSolver": [{}, {"engine": "native"}, {"engine": "device"},
+                         {"compact": True}, {"scale_eps": True},
+                         {"hybrid": True},
+                         {"hybrid": True, "scale_eps": True}],
+        "ForwardAuctionSolver": [{}, {"engine": "native"},
+                                 {"engine": "device"}],
+    }
+    walls = {}
+    for dtype in (np.float64, np.float32):
+        for solver, solution in readme_solvers(port, dtype):
+            name = type(solver).__name__
+            for kw in routes[name]:
+                secs, _ = wall_s(lambda: solver.solve(solution, False, **kw))
+                assert solution.num_unassigned == 0, (name, kw)
+                assert solver.get_objective(solution) == 17.0, (name, kw)
+                assert list(solution.person_to_object) == [3, 2], (name, kw)
+                assert list(solution.object_to_person) == [
+                    unassigned, unassigned, 1, 0], (name, kw)
+                key = f"{name} {np.dtype(dtype).name} " + (
+                    ",".join(f"{k}={v}" for k, v in kw.items()) or "auto")
+                walls[key] = secs
+    probes = []
+    for cls in (port.KhoslaSolver, port.ForwardAuctionSolver):
+        for engine in ("native", "device"):
+            solver, solution = cls.new(4, 4, 16)
+            for what, build in (
+                    ("init(5, 4)", lambda s: s.init(5, 4)),
+                    ("no arcs", lambda s: (s.init(1, 1), s.solve(
+                        solution, engine=engine))),
+                    ("column out of range", lambda s: (
+                        s.init(1, 2), s.add_value(0, 5, 1.0),
+                        s.solve(solution, engine=engine)))):
+                try:
+                    build(solver)
+                except ValueError as e:
+                    probes.append(f"{cls.__name__} {engine} {what}: {e}")
+                else:
+                    raise AssertionError(f"no ValueError: {what}")
+    infeasible = {}
+    for cls, kw in ((port.KhoslaSolver, {"engine": "native"}),
+                    (port.KhoslaSolver, {"engine": "device"}),
+                    (port.ForwardAuctionSolver, {})):
+        solver, solution = cls.new(2, 2, 2)
+        solver.init(2, 2)
+        solver.add_value(0, 0, 1.0)
+        solver.add_value(1, 0, 2.0)
+        secs, _ = wall_s(lambda: solver.solve(solution, False, **kw))
+        assert solution.num_unassigned == 1, (cls.__name__, kw)
+        key = cls.__name__ + (" " + kw["engine"] if kw else " auto")
+        infeasible[key] = {"num_unassigned": solution.num_unassigned,
+                           "nits": solver.nits, "wall_s": secs}
+        if cls is port.ForwardAuctionSolver:
+            # single-arc rows: the device route, stopped by its
+            # infeasibility certificate far below max_iterations
+            assert not solver.optimal_soln_found
+            assert solver.nits < 10_000, solver.nits
+            infeasible[key]["optimal_soln_found"] = False
+    launches = kernel_counts(mods)
+    assert not any(launches.values()), launches
+    emit({"phase": "reference_api", "card": card,
+          "readme_example_walls_s": walls, "error_probes": probes,
+          "infeasible": infeasible, "kernel_launches": launches})
+
+
+def phase_khosla_headline(port, mods, card):
+    """The repo's headline, not cut: n = 100,000, about 6 arcs a person,
+    values U[0, 10), eps = 1/n, float32 (``bench.py:169-270``), on the
+    auto route (the native ladder), the hybrid and the device route;
+    each against scipy's ``min_weight_full_bipartite_matching``."""
+    from sparse_linear_assignment_tpu_torch import hybrid
+    from sparse_linear_assignment_tpu_torch.ops import compact
+    from sparse_linear_assignment_tpu_torch.ops.padded import (
+        build_padded_problem,
+    )
+
+    n = HEADLINE_N
+    solver, solution = port.KhoslaSolver.new(n, n, 10 * n)
+    t0 = time.perf_counter()
+    port.generators.gen_symmetric_input(solver, 42, n, 5.0 / n, 0.0, 10.0)
+    gen_s = time.perf_counter() - t0
+    solver.dtype = np.dtype(np.float32)
+    want, scipy_s = scipy_sparse_optimum(solver)
+    c = float(np.abs(solver.values).max())
+    # the device route's warm solve is its breakdown run: each chunk
+    # ends in a readback anyway, so the syncs cost nothing extra
+    routes = (("auto", {}, 3, None),
+              ("hybrid", {"scale_eps": True, "hybrid": True}, 3, None),
+              ("device", {"engine": "device", "scale_eps": True}, 1,
+               [(compact, "khosla_full_chunk"), (compact, "khosla_run_chunk"),
+                (compact, "repack_slots")]))
+    out = {}
+    for name, kw, warm_reps, targets in routes:
+        zero_counts(mods)
+        first, _ = wall_s(lambda: solver.solve(solution, False, **kw))
+        with Breakdown(targets or []) as bd:
+            warm = [wall_s(lambda: solver.solve(solution, False, **kw))[0]
+                    for _ in range(warm_reps)]
+        got = solver.get_objective(solution)
+        assert solution.num_unassigned == 0, name
+        assert abs(got - want) <= n * solution.eps + 1e-6, (name, got, want)
+        # float32 rounds values and prices: the certificate holds within
+        # a few roundings at the scale of the largest value plus the
+        # largest price (docs/PARITY.md, deviation 6)
+        tol = (c + float(np.abs(solver.prices).max())) * 2.0 ** -22
+        assert solver.ecs_satisfied(solution.person_to_object,
+                                    solution.eps, tol), name
+        out[name] = {"first_s": first, "warm_s": warm,
+                     "warm_median_s": statistics.median(warm),
+                     "nits": solver.nits, "num_unassigned": 0,
+                     "objective": got, "gap": got - want,
+                     "ecs_toleration": tol,
+                     "ecs_worst": ecs_worst(solver, solution),
+                     "kernel_launches": kernel_counts(mods)}
+        assert not any(out[name]["kernel_launches"].values()), name
+        if targets:
+            out[name]["breakdown"] = {"s": bd.secs, "calls": bd.calls}
+    # where a warm hybrid solve's time goes (one more solve)
+    with Breakdown([(hybrid, "khosla_full_chunk"),
+                    (hybrid, "_read_lstate"),
+                    (hybrid, "khosla_finish_cpu")]) as bd:
+        secs, _ = wall_s(lambda: solver.solve(solution, False,
+                                              scale_eps=True, hybrid=True))
+    out["hybrid"]["breakdown"] = {"wall_s": secs, "s": bd.secs,
+                                  "calls": bd.calls}
+    # one full-scan and one slot-list chunk from the same state on the
+    # card and on the CPU: bit-equal (scatters included)
+    problem = solver._staged_problem[2]
+    cpu_problem = build_padded_problem(
+        n, n, solver.j_counts, solver.column_indices, solver.values,
+        dtype=np.float32, device="cpu")
+    eps = np.float32(solution.eps)
+    thr = np.float32((n / 2.0) * (float(solver.values.max())
+                                  - float(solver.values.min()) + 1e-5))
+    st = compact.fresh_lstate(
+        torch.zeros(n, dtype=problem.dtype, device=problem.device), n)
+    st, _ = compact.khosla_full_chunk(problem, st, eps, thr, 6)
+    st = compact.repack_slots(st, min(n, 32768))
+    cst = compact.lstate_from_jax(compact.lstate_to_numpy(st), device="cpu")
+    equal = {}
+    for what, fn, chunk in (("khosla_full_chunk", compact.khosla_full_chunk,
+                             4),
+                            ("khosla_run_chunk", compact.khosla_run_chunk,
+                             64)):
+        card_st, card_n = fn(problem, st, eps, thr, chunk)
+        cpu_st, cpu_n = fn(cpu_problem, cst, eps, thr, chunk)
+        a = compact.lstate_to_numpy(card_st)
+        b = compact.lstate_to_numpy(cpu_st)
+        bad = [k for k in a if not np.array_equal(a[k], b[k])]
+        assert not bad and int(card_n) == int(cpu_n), (what, bad)
+        equal[what] = {"rounds": chunk, "active_after": int(card_n),
+                       "bit_equal": True}
+    emit({"phase": "khosla_headline", "card": card, "n": n,
+          "arcs": solver.num_of_arcs(), "generate_s": gen_s,
+          "dtype": "float32", "eps": solution.eps,
+          "scipy_objective": want, "scipy_s": scipy_s, "routes": out,
+          "card_vs_cpu": equal})
+
+
+def phase_khosla_asym(port, mods, card):
+    """The reference's bench config B at its largest step, not cut:
+    2,000 persons, 60,000 objects, 32 arcs a person, Beta(3,3) integer
+    values in [300, 1000) (``benches/benchmark.rs:159-249``), native
+    and on the card."""
+    n, m, k = CONFIG_B
+    solver, solution = port.KhoslaSolver.new(n, m, n * k)
+    t0 = time.perf_counter()
+    port.generators.gen_asymmetric_input(solver, SEED, n, m, k, 300.0,
+                                         700.0)
+    gen_s = time.perf_counter() - t0
+    out = {}
+    for name, kw in (("native", {"engine": "native"}),
+                     ("device", {"engine": "device"})):
+        zero_counts(mods)
+        first, _ = wall_s(lambda: solver.solve(solution, False, **kw))
+        warm, _ = wall_s(lambda: solver.solve(solution, False, **kw))
+        assert solution.num_unassigned == 0, name
+        out[name] = {"first_s": first, "warm_s": warm, "nits": solver.nits,
+                     "objective": solver.get_objective(solution),
+                     "kernel_launches": kernel_counts(mods)}
+        assert not any(out[name]["kernel_launches"].values()), name
+    gap = out["device"]["objective"] - out["native"]["objective"]
+    assert abs(gap) <= n * solution.eps + 1e-6, gap
+    emit({"phase": "khosla_asym", "card": card, "n": n, "m": m,
+          "k": k, "values": "Beta(3,3) floored, [300, 1000)",
+          "eps": solution.eps, "generate_s": gen_s, "routes": out,
+          "objective_gap": gap, "bound": "n * eps"})
+
+
+def phase_forward_config_a(port, mods, card):
+    """The reference's bench config A at its largest step: n = 10,000,
+    density 1%, values U[500, 1000) (``benches/benchmark.rs:81-157``),
+    ``ForwardAuctionSolver`` native and on the card."""
+    n = CONFIG_A_N
+    solver, solution = port.ForwardAuctionSolver.new(n, n, n * n // 50)
+    t0 = time.perf_counter()
+    port.generators.gen_symmetric_input(solver, SEED, n, 0.01, 500.0,
+                                        1000.0)
+    gen_s = time.perf_counter() - t0
+    want, scipy_s = scipy_sparse_optimum(solver)
+    out = {}
+    for name, kw in (("native", {"engine": "native"}),
+                     ("device", {"engine": "device"})):
+        zero_counts(mods)
+        first, _ = wall_s(lambda: solver.solve(solution, False, **kw))
+        warm, _ = wall_s(lambda: solver.solve(solution, False, **kw))
+        got = solver.get_objective(solution)
+        assert solution.num_unassigned == 0, name
+        assert solver.optimal_soln_found, name
+        assert abs(got - want) <= n * solution.eps + 1e-6, (name, got, want)
+        out[name] = {"first_s": first, "warm_s": warm, "nits": solver.nits,
+                     "nreductions": solver.nreductions,
+                     "optimal_soln_found": True, "objective": got,
+                     "gap": got - want, "eps": solution.eps,
+                     "kernel_launches": kernel_counts(mods)}
+        assert not any(out[name]["kernel_launches"].values()), name
+    emit({"phase": "forward_config_a", "card": card, "n": n,
+          "arcs": solver.num_of_arcs(), "generate_s": gen_s,
+          "scipy_objective": want, "scipy_s": scipy_s, "routes": out})
+
+
+def phase_batch_sparse_padded(port, mods, card):
+    """``solve_batch_sparse(engine="padded")`` on the sparse-host
+    configuration, beside ``engine="dense"`` (the Khosla kernel)."""
+    b, n, m, k = SPARSE_HOST
+    cols, vals = port.generators.gen_batch_ksparse(SEED, b, n, m, k)
+    dense_ms, dense = sync_ms(lambda: port.solve_batch_sparse(
+        cols, vals, m, engine="dense"), reps=3)
+    zero_counts(mods)
+    padded_ms, padded = sync_ms(lambda: port.solve_batch_sparse(
+        cols, vals, m, engine="padded"), reps=3)
+    launches = kernel_counts(mods)
+    assert not any(launches.values()), launches
+    assert int(padded.num_unassigned.sum()) == 0
+    assert np.array_equal(padded.objective, dense.objective)
+    same = float(np.mean(padded.person_to_object == dense.person_to_object))
+    emit({"phase": "batch_sparse_padded", "card": card, "batch": b, "n": n,
+          "m": m, "k": k, "padded_wall_ms": padded_ms,
+          "dense_wall_ms": dense_ms, "objectives_equal": True,
+          "same_assignment_share": same,
+          "nits_max": int(padded.nits.max()),
+          "kernel_launches": launches})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -1653,7 +2026,17 @@ def main() -> int:
     phase_fr_plain_rounds(port, batch, fr_kernel, scipy_lsa)
     drt = phase_dense_chunk_time(dr, forward_init)
 
-    # 11. the run's total and the kernels line
+    # 11. the reference-crate API and the single sparse device engines:
+    # no kernel of the port on this path (the JAX package runs it as
+    # plain XLA); every phase reads the four kernels' counts (0)
+    mods = (fr_kernel, fr_big, ksp, dr)
+    phase_reference_api(port, mods, card)
+    phase_khosla_headline(port, mods, card)
+    phase_khosla_asym(port, mods, card)
+    phase_forward_config_a(port, mods, card)
+    phase_batch_sparse_padded(port, mods, card)
+
+    # 12. the run's total and the kernels line
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     emit({"kernels": [{
         "name": "fr_kernel",

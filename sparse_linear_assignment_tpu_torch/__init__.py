@@ -14,8 +14,15 @@ through the kernels' plain PyTorch versions when the caller passes
 - k-sparse instances through the Khosla auction on a densified plane:
   ``solve_batch_sparse``, ``stage_batch_sparse``,
   ``stage_batch_sparse_device``, ``solve_batch_sparse_stream``
-  (``csrc/ksp_kernel.cu``); ``generators.gen_batch_ksparse`` makes
-  seeded instances.
+  (``csrc/ksp_kernel.cu``), or on the padded gather rounds
+  (``solve_batch_sparse(engine="padded")``); ``generators`` makes
+  seeded instances;
+- the reference crate's API for one sparse instance:
+  ``AuctionSolver`` (CSR builder, objective, eps-CS certificate),
+  ``KhoslaSolver``, ``ForwardAuctionSolver``, ``AuctionSolution``, on
+  the native C++ engine (``cpu_reference.py``) or the device engines
+  (``ops/auction.py``, ``ops/compact.py``, ``hybrid.py``; plain
+  PyTorch, as the JAX package's are plain XLA).
 
 The port imports ``torch``, ``numpy`` and ``scipy`` only: nothing of
 JAX and nothing of the JAX package.  Importing it changes no global
@@ -40,12 +47,28 @@ from .ops.auction import (
     khosla_state_from_jax,
     khosla_state_to_numpy,
 )
+from .ops.compact import lstate_from_jax, lstate_to_numpy
 from .ops.fr_dense import state_to_numpy, weights_from_jax_state
-from .solution import UNASSIGNED, convert_indices
+from .ops.padded import padded_problem_from_numpy
+from .ksparse import KhoslaSolver
+from .solution import (
+    INDEX_DTYPE,
+    UNASSIGNED,
+    AuctionSolution,
+    convert_indices,
+    unassigned_value,
+)
+from .solver import AuctionSolver
+from .symmetric import ForwardAuctionSolver
 
 __all__ = [
+    "AuctionSolution",
+    "AuctionSolver",
     "BatchSolution",
     "BatchedLAP",
+    "ForwardAuctionSolver",
+    "INDEX_DTYPE",
+    "KhoslaSolver",
     "UNASSIGNED",
     "convert_indices",
     "forward_state_from_jax",
@@ -54,6 +77,9 @@ __all__ = [
     "khosla_state_from_jax",
     "khosla_state_to_numpy",
     "linear_sum_assignment",
+    "lstate_from_jax",
+    "lstate_to_numpy",
+    "padded_problem_from_numpy",
     "solve_batch",
     "solve_batch_sparse",
     "solve_batch_sparse_stream",
@@ -61,5 +87,6 @@ __all__ = [
     "stage_batch_sparse",
     "stage_batch_sparse_device",
     "state_to_numpy",
+    "unassigned_value",
     "weights_from_jax_state",
 ]

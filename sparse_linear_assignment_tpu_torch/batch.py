@@ -38,9 +38,10 @@ person-major plane ``[B, N, M']`` (``-inf`` at non-arcs), on the host
 with column compaction or on the device by scatter, and solved by
 forward-only Khosla rounds with the drop rule: float32 on the Khosla
 kernel (``ops/ksparse_kernel.py``), other float types on the plain
-rounds (``ops/auction.py``).  The padded sparse engine raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item; nothing degrades
-quietly.
+rounds (``ops/auction.py``).  ``engine="padded"`` keeps each instance
+in the padded dual layout (``ops/padded.py``) and runs the gather
+rounds of ``ops/auction.py`` over the whole batch: plain PyTorch, as
+the JAX package's padded engine is plain XLA.
 
 Entry points take ``device=None``, meaning ``"cuda"``; with no CUDA
 device they raise.  ``device="cpu"`` runs the kernels' plain PyTorch
@@ -90,6 +91,7 @@ from .ops.auction import (
 )
 from .ops.dense import DenseProblem
 from .ops.dense_round import fused_dense_chunk, kernel_fits
+from .ops.padded import PaddedProblem, build_padded_arrays
 from .ops import fr_big
 from .ops.fr_big import fr_big_chunk
 from .ops.fr_dense import fr_init, fr_round
@@ -1465,10 +1467,12 @@ def solve_batch_sparse(
     ``engine``: ``"dense"`` compacts each instance's referenced columns
     and runs the gather-free dense rounds (:func:`_sparse_densify`):
     float32 on the Khosla kernel, other float types on the plain rounds.
-    ``"padded"``, the padded dual-layout gather rounds, is not ported
-    yet and raises.  ``"auto"`` picks dense when the densified plane
-    fits (:func:`_sparse_dense_max_bytes`), padded otherwise; unlike the
-    JAX package it does so on ``device="cpu"`` too."""
+    ``"padded"`` keeps every instance in the padded dual layout and runs
+    the gather rounds (:func:`_solve_batch_sparse_padded`), whose memory
+    follows the arcs rather than the columns.  ``"auto"`` picks dense
+    when the densified plane fits (:func:`_sparse_dense_max_bytes`),
+    padded otherwise; unlike the JAX package it does so on
+    ``device="cpu"`` too."""
     problem = _sparse_host_problem(columns, values, num_cols, maximize, eps)
     columns = problem[0]
     b, n, k = columns.shape
@@ -1483,10 +1487,83 @@ def solve_batch_sparse(
                * np.dtype(dtype).itemsize)
         engine = "dense" if est <= _sparse_dense_max_bytes(dev) else "padded"
     if engine == "padded":
-        raise NotImplementedError(
-            "engine='padded' (the padded dual-layout gather rounds) is "
-            "not ported yet (ROADMAP.md §1 item 8); engine='dense' "
-            "serves every batch whose densified plane fits the device"
-        )
+        return _solve_batch_sparse_padded(*problem, dtype, max_rounds,
+                                          chunk, dev)
     st = _sparse_stage_dense(*problem, dtype, dev)
     return _sparse_solve_staged(st, max_rounds, chunk)
+
+
+def _batch_chunk_sparse(problem: PaddedProblem, states: KhoslaState, eps,
+                        thresholds, max_rounds: int, chunk: int):
+    """``chunk`` Khosla rounds over a batch of padded instances (the JAX
+    package's ``vmap``: a leading batch dimension); returns the states
+    and a 0-dim bool, every instance done or at ``max_rounds``."""
+    for _ in range(chunk):
+        states = khosla_round(problem, states, eps, thresholds)
+    active = ((states.p2o == UNASSIGNED) & ~states.dropped).sum(dim=1)
+    alldone = (active == 0).all() | (states.nits >= max_rounds).all()
+    return states, alldone
+
+
+def _solve_batch_sparse_padded(columns, values64, arc_mask, work, m: int,
+                               eps_val: float, thresholds, dtype,
+                               max_rounds: int, chunk: int,
+                               dev: torch.device) -> BatchSolution:
+    """The padded engine of :func:`solve_batch_sparse`: each instance's
+    dual padded layout (``ops/padded.py``), stacked with the batch's
+    largest slot counts, then chunks of batched gather rounds, doubling
+    from 8 up to ``chunk``, with one ``alldone`` readback a chunk."""
+    b, n, _ = columns.shape
+    probs = []
+    for bi in range(b):
+        mask_i = arc_mask[bi]
+        probs.append(build_padded_arrays(
+            n, m, mask_i.sum(axis=1), columns[bi][mask_i],
+            work[bi][mask_i], dtype=dtype,
+        ))
+
+    def stack(name, fill=0):
+        kdim = max(p[name].shape[0] for p in probs)
+        out = np.full((b, kdim) + probs[0][name].shape[1:], fill,
+                      dtype=probs[0][name].dtype)
+        for bi, p in enumerate(probs):
+            out[bi, : p[name].shape[0]] = p[name]
+        return torch.from_numpy(out).to(dev)
+
+    problem = PaddedProblem(
+        stack("row_cols"), stack("row_vals"), stack("row_mask", False),
+        stack("col_persons"), stack("col_mask", False),
+    )
+    np_dtype = np.dtype(dtype)
+    states = KhoslaState(
+        prices=torch.zeros((b, m), dtype=problem.dtype, device=dev),
+        p2o=torch.full((b, n), UNASSIGNED, dtype=torch.int32, device=dev),
+        o2p=torch.full((b, m), UNASSIGNED, dtype=torch.int32, device=dev),
+        dropped=torch.zeros((b, n), dtype=torch.bool, device=dev),
+        nits=torch.zeros(b, dtype=torch.int32, device=dev),
+    )
+    eps_s = torch.tensor(np_dtype.type(eps_val), device=dev)
+    thr = torch.from_numpy(thresholds.astype(np_dtype)).to(dev)
+    rounds = 0
+    cur = min(chunk, 8)
+    while True:
+        states, alldone = _batch_chunk_sparse(problem, states, eps_s, thr,
+                                              max_rounds, cur)
+        rounds += cur
+        if bool(alldone) or rounds >= max_rounds:
+            break
+        cur = min(chunk, cur * 2)
+
+    p2o = states.p2o.cpu().numpy()
+    assigned = p2o != UNASSIGNED
+    # the objective from the original values: each person's chosen
+    # column against its arc slots (unassigned persons add 0)
+    match = arc_mask & (columns == p2o[:, :, None])
+    return BatchSolution(
+        person_to_object=p2o,
+        object_to_person=o2p_from_p2o(p2o, m),
+        num_unassigned=(~assigned).sum(axis=1).astype(np.int32),
+        objective=np.where(match, values64, 0.0).sum(axis=(1, 2)),
+        eps=np.full(b, eps_val),
+        nits=states.nits.cpu().numpy(),
+    )

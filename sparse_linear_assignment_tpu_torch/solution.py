@@ -1,11 +1,15 @@
-"""Index conventions of the assignment results.
+"""The solution object and the index conventions of the results.
 
-A NumPy-only copy of the JAX package's ``solution.py`` conventions
-(the port imports nothing of that package): ``int32`` indices with
-``UNASSIGNED == 2**31 - 1`` marking an unassigned person or object.
+A NumPy-only copy of the JAX package's ``solution.py`` (the port imports
+nothing of that package): ``int32`` indices with
+``UNASSIGNED == 2**31 - 1`` marking an unassigned person or object, the
+role of the reference crate's ``I::max_value()``.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import numpy as np
 
@@ -40,6 +44,55 @@ def convert_indices(arr: np.ndarray, index_dtype) -> np.ndarray:
                 f"{dt.name} (sentinel {sent})"
             )
     return np.where(real, arr, sent).astype(dt)
+
+
+@dataclasses.dataclass
+class AuctionSolution:
+    """Result of a linear assignment solve (the reference crate's
+    ``AuctionSolution<I>``):
+
+    - ``person_to_object[i]``: the object person ``i`` owns
+      (``UNASSIGNED`` if none);
+    - ``object_to_person[j]``: the person owning object ``j``
+      (``UNASSIGNED`` if unowned);
+    - ``num_unassigned``: unassigned persons (a perfect matching iff 0);
+    - ``eps``: the eps at which the solution was found; eps-optimal if a
+      perfect matching exists.
+    """
+
+    person_to_object: np.ndarray
+    object_to_person: np.ndarray
+    num_unassigned: int
+    eps: float
+
+    @classmethod
+    def new(cls, row_capacity: int = 0,
+            column_capacity: int = 0) -> "AuctionSolution":
+        """A fresh solution in the reference's initial state: empty
+        assignment arrays, ``num_unassigned`` at the sentinel,
+        ``eps = NaN``.  The capacity hints are unused here: every solve
+        builds new assignment arrays (a caller may hold the previous
+        ones); the solver's CSR storage takes its own hints."""
+        del row_capacity, column_capacity
+        return cls(
+            person_to_object=np.zeros(0, dtype=INDEX_DTYPE),
+            object_to_person=np.zeros(0, dtype=INDEX_DTYPE),
+            num_unassigned=UNASSIGNED,
+            eps=math.nan,
+        )
+
+    def astype_index(self, index_dtype) -> "AuctionSolution":
+        """A copy with both assignment arrays in another index width
+        (u16, u32), the sentinel remapped to the target's maximum; see
+        :func:`convert_indices`."""
+        return AuctionSolution(
+            person_to_object=convert_indices(self.person_to_object,
+                                             index_dtype),
+            object_to_person=convert_indices(self.object_to_person,
+                                             index_dtype),
+            num_unassigned=self.num_unassigned,
+            eps=self.eps,
+        )
 
 
 def o2p_from_p2o(p2o: np.ndarray, num_cols: int) -> np.ndarray:

@@ -1,3 +1,4 @@
+from .compaction import push_all_left
 from .trace import (
     is_enabled,
     profile_solve,

@@ -326,10 +326,15 @@ def test_stream_equals_per_call_solves():
 # routes and errors
 # ----------------------------------------------------------------------
 def test_padded_engine_raises_naming_its_roadmap_item():
+    """``engine="padded"`` no longer raises: the padded dual-layout
+    gather rounds solve, equal to the JAX package's padded engine; an
+    unknown engine still raises."""
     columns, values = make_arcs(50, 2, 8, 32, 3)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port.solve_batch_sparse(columns, values, 32, engine="padded",
-                                device="cpu")
+    got = port.solve_batch_sparse(columns, values, 32, engine="padded",
+                                  device="cpu")
+    want = jbatch.solve_batch_sparse(columns, values, 32, engine="padded")
+    assert_same_solution(got, want)
+    assert got.num_unassigned.sum() == 0
     with pytest.raises(ValueError, match="unknown engine"):
         port.solve_batch_sparse(columns, values, 32, engine="csr",
                                 device="cpu")
@@ -338,7 +343,8 @@ def test_padded_engine_raises_naming_its_roadmap_item():
 def test_auto_route_estimates_the_ports_plane_width(monkeypatch):
     """``engine="auto"`` sizes the plane as the port stages it (a warp
     multiple of min(m, n*k) columns) and takes the dense route when it
-    fits, also on the CPU."""
+    fits, also on the CPU; over the limit it takes the padded engine,
+    which gives the same matching here."""
     assert tbatch._plane_width(1) == PLANE_ALIGN
     assert tbatch._plane_width(32) == 32
     assert tbatch._plane_width(33) == 64
@@ -347,11 +353,19 @@ def test_auto_route_estimates_the_ports_plane_width(monkeypatch):
     columns, values = make_arcs(51, b, n, m, k)
     est = b * tbatch._plane_width(n * k) * n * 4
     monkeypatch.setattr(tbatch, "_SPARSE_DENSE_MAX_BYTES_CPU", est)
-    sol = port.solve_batch_sparse(columns, values, m, device="cpu")
-    assert sol.num_unassigned.sum() == 0
+    dense = port.solve_batch_sparse(columns, values, m, device="cpu")
+    assert dense.num_unassigned.sum() == 0
     monkeypatch.setattr(tbatch, "_SPARSE_DENSE_MAX_BYTES_CPU", est - 1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port.solve_batch_sparse(columns, values, m, device="cpu")
+    taken = []
+    real = tbatch._solve_batch_sparse_padded
+    monkeypatch.setattr(tbatch, "_solve_batch_sparse_padded",
+                        lambda *a: taken.append(1) or real(*a))
+    padded = port.solve_batch_sparse(columns, values, m, device="cpu")
+    assert taken == [1]
+    assert padded.num_unassigned.sum() == 0
+    np.testing.assert_array_equal(padded.objective, dense.objective)
+    want = jbatch.solve_batch_sparse(columns, values, m, engine="padded")
+    assert_same_solution(padded, want)
 
 
 def test_entry_points_validate_their_arguments():

@@ -32,6 +32,14 @@ def test_import_loads_no_jax():
         "import sparse_linear_assignment_tpu_torch.generators\n"
         "import sparse_linear_assignment_tpu_torch.cpu_reference\n"
         "import sparse_linear_assignment_tpu_torch.utils.trace\n"
+        "import sparse_linear_assignment_tpu_torch.utils.compaction\n"
+        "import sparse_linear_assignment_tpu_torch.solver\n"
+        "import sparse_linear_assignment_tpu_torch.ksparse\n"
+        "import sparse_linear_assignment_tpu_torch.symmetric\n"
+        "import sparse_linear_assignment_tpu_torch.hybrid\n"
+        "import sparse_linear_assignment_tpu_torch.ops.padded\n"
+        "import sparse_linear_assignment_tpu_torch.ops.compact\n"
+        "import sparse_linear_assignment_tpu_torch.ops.prefix\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib') or "
         "m.startswith(('jax.', 'jaxlib.')) or m == "
         "'sparse_linear_assignment_tpu' or m.startswith("
@@ -48,6 +56,10 @@ def test_import_loads_no_jax():
 def test_sources_import_no_jax():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) >= 8
+    names = {p.relative_to(PKG).as_posix() for p in files}
+    assert {"solver.py", "ksparse.py", "symmetric.py", "hybrid.py",
+            "ops/padded.py", "ops/compact.py", "ops/prefix.py",
+            "utils/compaction.py"} <= names
     offenders = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
