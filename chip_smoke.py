@@ -38,7 +38,18 @@ drives the port's paths through ``solve_batch``:
   and a full-scan and a slot-list chunk bit-equal on the card and the
   CPU; the reference crate's bench configs B (2,000 x 60,000, k = 32)
   and A (n = 10,000, density 1%), native and on the card;
-  ``solve_batch_sparse(engine="padded")`` beside ``"dense"``.
+  ``solve_batch_sparse(engine="padded")`` beside ``"dense"``;
+- the sharded modes (``parallel/sharded.py``) on a world of one NCCL
+  rank: the collective audit on the card; ``solve_batch_sharded`` on the
+  north-star batch (FR kernel; bit-equal to ``solve_batch``, every
+  instance certified) and its stream of three batches (bit-equal to
+  ``solve_batch_stream``); ``solve_batch_sparse_sharded`` on one
+  sparse-stream batch (Khosla kernel; bit-equal to
+  ``solve_batch_sparse``); ``solve_fr_dense_sharded`` on big-4096 (plain
+  rounds; scipy's objective, bit-equal to the big-single route); and
+  ``solve_sharded_khosla`` on config B and ``solve_sharded_forward`` on
+  config A, each with the native engine's objective; every solve's
+  collective counts against the audit table.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -1799,6 +1810,302 @@ def phase_batch_sparse_padded(port, mods, card):
           "kernel_launches": launches})
 
 
+# ----------------------------------------------------------------------
+# the sharded modes (parallel/sharded.py) on a world of one NCCL rank
+# ----------------------------------------------------------------------
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def collective_counts():
+    from sparse_linear_assignment_tpu_torch.parallel import collectives
+
+    return dict(collectives.COUNTS)
+
+
+def reset_collectives():
+    from sparse_linear_assignment_tpu_torch.parallel import collectives
+
+    collectives.reset_counts()
+
+
+def only_kernel(launches, name):
+    """Raise unless ``name`` launched and no other kernel did."""
+    assert launches[name] > 0, (name, launches)
+    assert not any(v for k, v in launches.items() if k != name), launches
+
+
+def solutions_equal(a, b, fields=("person_to_object", "object_to_person",
+                                  "nits", "num_unassigned", "objective")):
+    return [f for f in fields
+            if not np.array_equal(getattr(a, f), getattr(b, f))]
+
+
+def sharded_north_star(port, batch, sharded, mods, fr_init):
+    """``solve_batch_sharded`` on the north-star batch against
+    ``solve_batch`` (bit-equal), every instance certified by its duals,
+    and the stream of three such batches against ``solve_batch_stream``."""
+    b, n, max_cost = 4096, 256, 1000
+    gen = torch.Generator(device="cuda")
+    batches = []
+    for k in range(3):
+        gen.manual_seed(SEED + k)
+        batches.append(torch.randint(1, max_cost, (b, n, n), generator=gen,
+                                     device="cuda",
+                                     dtype=torch.int32).float())
+    costs = batches[0]
+    host = costs.cpu().numpy()
+    kw = dict(integer=True, max_cost=max_cost)
+
+    def solve_sharded():
+        return sharded.solve_batch_sharded(host, costs_device=costs, **kw)
+
+    zero_counts(mods)
+    reset_collectives()
+    first_ms, sol = sync_ms(solve_sharded)
+    launches = kernel_counts(mods)
+    counts = collective_counts()
+    only_kernel(launches, "fr_kernel")
+    # batched: no collective a round, one done count a chunk (a launch
+    # each), one gather of the result
+    assert counts == {"all_gather": 1, "max": 0, "min": 0,
+                      "sum": launches["fr_kernel"]}, counts
+    warm_ms, sol2 = sync_ms(solve_sharded, reps=3)
+    ref_ms, ref = sync_ms(lambda: port.solve_batch(
+        None, costs_device=costs, **kw), reps=3)
+    assert not solutions_equal(sol, sol2)
+    bad = solutions_equal(sol, ref)
+    assert not bad, ("solve_batch_sharded differs from solve_batch", bad)
+    assert int(sol.num_unassigned.max()) == 0
+    # the same deterministic solve through the sharded pieces, for its
+    # duals: every instance is certified optimal
+    scale = batch._integer_scale(None, None, n, n, True, max_cost)
+    sched = batch._fr_fused_schedule(b, n, 100_000)
+    vt, work = sharded._stage_values_t_sharded(costs, True, scale)
+    st, undone = sharded._fr_batch_chunk_local(
+        vt, fr_init(vt, 1), 100_000, 128, True, sched, values=work)
+    while int(undone):
+        st, undone = sharded._fr_batch_chunk_local(
+            vt, st, 100_000, 128, True, values=work)
+    assert np.array_equal(st.p2o.cpu().numpy(), sol.person_to_object)
+    certify_lattice(work, st)
+    del vt, work, st
+    # where a warm sharded solve's time goes (one more solve, each step
+    # ended by a device sync)
+    with Breakdown([(sharded, name) for name in (
+            "_local_costs", "_stage_values_t_sharded", "fr_init",
+            "_fr_batch_chunk_local", "all_gather_parts",
+            "o2p_from_p2o")]) as bd:
+        bd_s, _ = wall_s(solve_sharded)
+    north = {"batch": b, "n": n, "first_call_ms": first_ms,
+             "warm_median_ms": warm_ms, "solve_batch_warm_median_ms": ref_ms,
+             "instances_per_s": b / (warm_ms / 1e3),
+             "bit_equal_to_solve_batch": True, "certified_optimal": b,
+             "kernel_launches": launches, "collectives": counts,
+             "breakdown": {"wall_ms": bd_s * 1e3,
+                           "ms": {k: v * 1e3 for k, v in bd.secs.items()},
+                           "calls": bd.calls}}
+
+    zero_counts(mods)
+    reset_collectives()
+    stream_ms, res = sync_ms(lambda: sharded.solve_batch_sharded_stream(
+        batches, window=2, **kw))
+    launches = kernel_counts(mods)
+    counts = collective_counts()
+    only_kernel(launches, "fr_kernel")
+    # one gather a batch and a done check, one more of each after every
+    # continuation chunk (a launch and a sum each)
+    assert counts == {"all_gather": 3 + counts["sum"], "max": 0, "min": 0,
+                      "sum": launches["fr_kernel"] - 3}, counts
+    ref_stream_ms, ref_res = sync_ms(lambda: port.solve_batch_stream(
+        batches, window=2, **kw))
+    assert len(res) == 3
+    for got, want in zip(res, ref_res):
+        bad = solutions_equal(got, want)
+        assert not bad, ("solve_batch_sharded_stream differs", bad)
+    assert solutions_equal(res[0], sol) == []
+    stream = {"batches": 3, "window": 2, "wall_ms": stream_ms,
+              "solve_batch_stream_wall_ms": ref_stream_ms,
+              "instances_per_s": 3 * b / (stream_ms / 1e3),
+              "bit_equal_to_solve_batch_stream": True,
+              "kernel_launches": launches, "collectives": counts}
+    return north, stream
+
+
+def sharded_sparse(port, sharded, mods):
+    """``solve_batch_sparse_sharded`` on one sparse-stream batch against
+    ``solve_batch_sparse`` on the same arcs."""
+    b, n, m, k = 4096, 128, 512, 8
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 100)
+    cols, vals = device_arcs(gen, b, n, m, k, 300, 1000)
+    cols, vals = cols.cpu().numpy(), vals.cpu().numpy()
+    zero_counts(mods)
+    reset_collectives()
+    first_ms, sol = sync_ms(
+        lambda: sharded.solve_batch_sparse_sharded(cols, vals, m))
+    launches = kernel_counts(mods)
+    counts = collective_counts()
+    only_kernel(launches, "ksparse_kernel")
+    # no collective but the gathered result, one a budget tried
+    assert counts == {"all_gather": launches["ksparse_kernel"], "max": 0,
+                      "min": 0, "sum": 0}, counts
+    warm_ms, sol2 = sync_ms(
+        lambda: sharded.solve_batch_sparse_sharded(cols, vals, m), reps=3)
+    ref_ms, ref = sync_ms(
+        lambda: port.solve_batch_sparse(cols, vals, m), reps=3)
+    assert not solutions_equal(sol, sol2)
+    bad = solutions_equal(sol, ref)
+    assert not bad, ("solve_batch_sparse_sharded differs", bad)
+    assert int(sol.num_unassigned.sum()) == 0
+    return {"batch": b, "n": n, "m": m, "k": k,
+            "first_call_ms": first_ms, "warm_median_ms": warm_ms,
+            "solve_batch_sparse_warm_median_ms": ref_ms,
+            "bit_equal_to_solve_batch_sparse": True,
+            "kernel_launches": launches, "collectives": counts}
+
+
+def sharded_fr_dense(port, sharded, mods, scipy_lsa):
+    """``solve_fr_dense_sharded`` on big-4096 (plain PyTorch rounds,
+    never the big-single kernel) against scipy and the big-single
+    route, whose kernel runs the same rounds."""
+    n = 4096
+    rng = np.random.default_rng(SEED)
+    costs = rng.integers(1, 1000, size=(1, n, n)).astype(np.float64)
+    eps = 1.0 / (n + 1)
+    zero_counts(mods)
+    reset_collectives()
+    wall, (p2o, o2p, unassigned, nits, objective) = wall_s(
+        lambda: sharded.solve_fr_dense_sharded(costs[0], eps=eps))
+    launches = kernel_counts(mods)
+    counts = collective_counts()
+    assert not any(launches.values()), launches
+    # a forward round: 2 max, 2 min, 1 sum; a reverse round: 1 max, 2 min
+    fwd = counts["sum"]
+    rev = counts["max"] - 2 * fwd
+    assert fwd + rev == nits and counts["min"] == 2 * nits, counts
+    assert counts["all_gather"] == 1, counts
+    assert unassigned == 0
+    r, c = scipy_lsa(costs[0])
+    assert objective == costs[0][r, c].sum(), "sharded 4096² objective"
+    dev = torch.from_numpy(costs.astype(np.float32)).cuda()
+    big_ms, big = sync_ms(lambda: port.solve_batch(
+        costs, costs_device=dev, eps=eps, dtype=np.float32), reps=3)
+    assert np.array_equal(big.person_to_object[0], p2o)
+    assert int(big.nits[0]) == nits
+    assert np.array_equal(big.object_to_person[0], o2p)
+    return {"n": n, "eps": eps, "wall_s": wall, "nits": nits,
+            "forward_rounds": fwd, "reverse_rounds": rev,
+            "ms_per_round": wall * 1e3 / nits,
+            "big_single_route_warm_median_ms": big_ms,
+            "scipy_equal": True, "equal_to_big_single_route": True,
+            "kernel_launches": launches, "collectives": counts}
+
+
+def sharded_reference(port, sharded, mods):
+    """``solve_sharded_khosla`` on config B and ``solve_sharded_forward``
+    on config A, each against the native engine's objective."""
+    n, m, k = CONFIG_B
+    solver, solution = port.KhoslaSolver.new(n, m, n * k)
+    port.generators.gen_asymmetric_input(solver, SEED, n, m, k, 300.0,
+                                         700.0)
+    solver.solve(solution, False, engine="native")
+    native = solver.get_objective(solution)
+    zero_counts(mods)
+    reset_collectives()
+    first, (sol, nits) = wall_s(lambda: sharded.solve_sharded_khosla(solver))
+    counts = collective_counts()
+    launches = kernel_counts(mods)
+    assert not any(launches.values()), launches
+    # the chunks replay as CUDA graphs, which call no collective from
+    # Python: the counts are those of the capture's eager warm-up round
+    # and its 16-round chunk (5 gathers and 1 sum a round, 1 sum a
+    # chunk) and of the gathered result.  The per-round counts are held
+    # by the audit above, the rounds run by nits.
+    assert counts == {"all_gather": 5 + 80 + 1, "max": 0, "min": 0,
+                      "sum": 2 + 17}, counts
+    rounds_run = 16 * -(-nits // 16)
+    warm, _ = wall_s(lambda: sharded.solve_sharded_khosla(solver))
+    assert sol.num_unassigned == 0
+    got = solver.get_objective(sol)
+    assert got == native, (got, native)
+    khosla = {"n": n, "m": m, "k": k, "first_s": first, "warm_s": warm,
+              "nits": nits, "rounds_run": rounds_run,
+              "ms_per_round": warm * 1e3 / rounds_run, "objective": got,
+              "native_objective": native, "kernel_launches": launches,
+              "collectives_from_python": counts}
+
+    n = CONFIG_A_N
+    solver, solution = port.ForwardAuctionSolver.new(n, n, n * n // 50)
+    port.generators.gen_symmetric_input(solver, SEED, n, 0.01, 500.0,
+                                        1000.0)
+    solver.solve(solution, False, engine="native")
+    native = solver.get_objective(solution)
+    native_nits = solver.nits
+    zero_counts(mods)
+    reset_collectives()
+    wall, (sol, nits) = wall_s(lambda: sharded.solve_sharded_forward(solver))
+    counts = collective_counts()
+    launches = kernel_counts(mods)
+    assert not any(launches.values()), launches
+    # as for khosla: the capture's warm-up round and 16-round chunk (6
+    # gathers and 3 sums a round) and the gathered result
+    assert counts == {"all_gather": 6 + 96 + 1, "max": 0, "min": 0,
+                      "sum": 3 + 48}, counts
+    rounds_run = 16 * -(-nits // 16)
+    assert sol.num_unassigned == 0 and solver.optimal_soln_found
+    got = solver.get_objective(sol)
+    assert got == native, (got, native)
+    forward = {"n": n, "arcs": solver.num_of_arcs(), "wall_s": wall,
+               "nits": nits, "nreductions": solver.nreductions,
+               "rounds_run": rounds_run,
+               "ms_per_round": wall * 1e3 / rounds_run,
+               "objective": got, "native_objective": native,
+               "native_nits": native_nits, "kernel_launches": launches,
+               "collectives_from_python": counts}
+    return khosla, forward
+
+
+def phase_sharded(port, batch, mods, card, fr_init, scipy_lsa):
+    """The sharded modes on a world of one NCCL rank, each at the size
+    its unsharded counterpart runs above: the collective audit on the
+    card, then every entry point against its unsharded route."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from sparse_linear_assignment_tpu_torch.parallel import dryrun, sharded
+
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        audit = dryrun.collective_audit(device=None)
+        assert dryrun.audit_matches(audit), audit
+        emit({"phase": "sharded_audit", "card": card, "world": 1,
+              "backend": str(dist.get_backend()), "audit": audit})
+        north, stream = sharded_north_star(port, batch, sharded, mods,
+                                           fr_init)
+        emit({"phase": "sharded_north_star", "card": card, **north})
+        emit({"phase": "sharded_stream", "card": card, **stream})
+        emit({"phase": "sharded_sparse", "card": card,
+              **sharded_sparse(port, sharded, mods)})
+        emit({"phase": "sharded_fr_dense", "card": card,
+              **sharded_fr_dense(port, sharded, mods, scipy_lsa)})
+        khosla, forward = sharded_reference(port, sharded, mods)
+        emit({"phase": "sharded_khosla", "card": card, **khosla})
+        emit({"phase": "sharded_forward", "card": card, **forward})
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "sharded", "card": card,
+          "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -2036,7 +2343,11 @@ def main() -> int:
     phase_forward_config_a(port, mods, card)
     phase_batch_sparse_padded(port, mods, card)
 
-    # 12. the run's total and the kernels line
+    # 12. the sharded modes on a world of one NCCL rank: fr_kernel and
+    # ksp_kernel under the batch-sharded entry points
+    phase_sharded(port, batch, mods, card, fr_init, scipy_lsa)
+
+    # 13. the run's total and the kernels line
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     emit({"kernels": [{
         "name": "fr_kernel",

@@ -40,6 +40,10 @@ def test_import_loads_no_jax():
         "import sparse_linear_assignment_tpu_torch.ops.padded\n"
         "import sparse_linear_assignment_tpu_torch.ops.compact\n"
         "import sparse_linear_assignment_tpu_torch.ops.prefix\n"
+        "import sparse_linear_assignment_tpu_torch.parallel\n"
+        "import sparse_linear_assignment_tpu_torch.parallel.sharded\n"
+        "import sparse_linear_assignment_tpu_torch.parallel.collectives\n"
+        "import sparse_linear_assignment_tpu_torch.parallel.dryrun\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib') or "
         "m.startswith(('jax.', 'jaxlib.')) or m == "
         "'sparse_linear_assignment_tpu' or m.startswith("
@@ -59,7 +63,9 @@ def test_sources_import_no_jax():
     names = {p.relative_to(PKG).as_posix() for p in files}
     assert {"solver.py", "ksparse.py", "symmetric.py", "hybrid.py",
             "ops/padded.py", "ops/compact.py", "ops/prefix.py",
-            "utils/compaction.py"} <= names
+            "utils/compaction.py", "parallel/__init__.py",
+            "parallel/sharded.py", "parallel/collectives.py",
+            "parallel/dryrun.py"} <= names
     offenders = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
