@@ -49,7 +49,16 @@ drives the port's paths through ``solve_batch``:
   rounds; scipy's objective, bit-equal to the big-single route); and
   ``solve_sharded_khosla`` on config B and ``solve_sharded_forward`` on
   config A, each with the native engine's objective; every solve's
-  collective counts against the audit table.
+  collective counts against the audit table;
+- the in-kernel round trace (``ops/round_log.py``) of the three round
+  kernels: each kernel's log bit-equal to its plain version's rows
+  (``fr_kernel`` at 64 x 256² to done, ``fr_big_kernel`` on the 4096²
+  opening and the all-equal 2048² instance, ``ksp_kernel`` on a
+  sparse-stream batch), the north-star chunk with tracing on (its
+  printed lines parsed) bit-identical to it with tracing off, the
+  kernels' times with the trace off and on, their registers and
+  spills, and what the traces show (flips, rounds at the last
+  unmatched person).
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -2106,6 +2115,268 @@ def phase_sharded(port, batch, mods, card, fr_init, scipy_lsa):
           "seconds": time.perf_counter() - t0})
 
 
+# ----------------------------------------------------------------------
+# the in-kernel round trace (ops/round_log.py)
+# ----------------------------------------------------------------------
+FR_TRACE_LINE = (r"^fr kernel g=(\d+) round: nits=(-?\d+) mode=(-?\d+) "
+                 r"card=(-?\d+) done=(-?\d+)$")
+
+
+def fr_rows_agree(rows, s0, got):
+    """A FR kernel's trace rows against its final state: the row of each
+    instance's last round run holds its final nits, mode, cardinality
+    and done, and every row after it is zero."""
+    from sparse_linear_assignment_tpu_torch.solution import UNASSIGNED
+
+    b, r, _ = rows.shape
+    count = (got.nits - s0.nits).long()
+    last = rows[torch.arange(b, device=rows.device),
+                (count - 1).clamp(min=0)]
+    final = torch.stack([got.nits, got.forward_mode.to(torch.int32),
+                         (got.p2o != UNASSIGNED).sum(dim=1).to(torch.int32),
+                         got.done.to(torch.int32)], dim=1)
+    after = torch.arange(r, device=rows.device)[None, :] >= count[:, None]
+    return bool(((last == final).all(dim=1) | (count == 0)).all()) and \
+        not bool(rows[after].any())
+
+
+def flips(rows, count):
+    """Mode flips of each instance's trace rows ``[B, R, 4]`` over its
+    ``count [B]`` rounds run from ``fr_init`` (forward mode at entry)."""
+    mode = rows[:, :, 1]
+    prev = torch.cat([torch.ones_like(mode[:, :1]), mode[:, :-1]], dim=1)
+    r = torch.arange(rows.shape[1], device=rows.device)[None, :]
+    return ((mode != prev) & (r < count[:, None])).sum(dim=1)
+
+
+def traced_rows(*shape):
+    return torch.zeros(shape, dtype=torch.int32, device="cuda")
+
+
+def trace_ms(fn_off, fn_on, reps=5):
+    """CUDA-event times of the same launch with the trace off and on (the
+    log written to a tensor), in turns off, on, on, off."""
+    a = event_ms(fn_off, reps)
+    b = event_ms(fn_on, reps)
+    c = event_ms(fn_on, reps)
+    d = event_ms(fn_off, reps)
+    return [a, d], [b, c]
+
+
+def phase_kernel_trace(port, batch, fr_kernel, fr_big, ksp, fr_init,
+                       _build, earlier):
+    """The three round kernels' in-kernel trace against their plain
+    versions on the card, row for row (int32, bit-equal): ``fr_kernel``
+    at 64 x 256² on the lattice to done, ``fr_big_kernel`` for one
+    64-round chunk of the 4096² big single and 400 rounds of the
+    all-equal 2048² instance, ``ksp_kernel`` on one sparse-stream batch
+    to done.  The north-star chunk through ``fr_chunk`` with tracing on
+    (its lines captured and parsed) leaves the same state as with it
+    off, prints each instance's rounds and ends on its final nits, mode
+    and done.  Each kernel's time with the trace off and on (the log
+    written to a tensor) beside the earlier phases' figures
+    (``earlier``), the traced north-star wall with its printing, the
+    kernels' registers and spills, and what the traces show: the
+    slowest north-star instance's rounds and flips, the big singles'
+    rounds per flip."""
+    import io
+    import re
+
+    from sparse_linear_assignment_tpu_torch.ops import round_log
+    from sparse_linear_assignment_tpu_torch.utils import trace
+
+    out = {"phase": "kernel_trace"}
+    gen = torch.Generator(device="cuda")
+
+    # fr_kernel, 64 x 256² on the lattice, to done
+    b, n = 64, 256
+    gen.manual_seed(SEED + 10)
+    costs = torch.randint(1, 1000, (b, n, n), generator=gen, device="cuda",
+                          dtype=torch.int32).float()
+    vt, work = lattice_values(costs)
+    s0 = fr_init(vt, 1)
+    rounds = batch._fr_fused_schedule(b, n, 100_000)
+    rk, rp = traced_rows(b, rounds, 4), traced_rows(b, rounds, 4)
+    got, _ = fr_kernel.fr_chunk(vt, s0, rounds, values=work, trace_rows=rk)
+    want, _ = fr_kernel.fr_chunk_reference(vt, s0, rounds, trace_rows=rp)
+    bad, _ = states_equal(got, want)
+    assert not bad and bool(got.done.all()), ("fr_kernel 64x256²", bad)
+    assert torch.equal(rk, rp), "fr_kernel trace rows differ from plain"
+    assert fr_rows_agree(rk, s0, got)
+    out["fr_kernel_64x256"] = {"rows": int((got.nits - s0.nits).sum()),
+                               "nits_max": int(got.nits.max())}
+    del costs, vt, work, s0, got, want, rk, rp
+
+    # fr_big_kernel: one 64-round chunk of the 4096² big single, 400
+    # rounds of the all-equal 2048² instance
+    big_cases = []
+    rng = np.random.default_rng(SEED)
+    dev4 = torch.from_numpy(rng.integers(1, 1000, size=(1, 4096, 4096))
+                            .astype(np.float32)).cuda()
+    gen.manual_seed(SEED + 2048 + 2)
+    dev2 = torch.randint(1, 2, (1, 2048, 2048), generator=gen,
+                         device="cuda", dtype=torch.int32).float()
+    for dev, chunk, what in ((dev4, 64, "4096² from fr_init"),
+                             (dev2, 400, "2048², all costs equal")):
+        sz = dev.shape[1]
+        vt, work = batch._stage(dev, True, None)
+        s0 = fr_init(vt, 1.0 / (sz + 1))
+        rk, rp = traced_rows(1, chunk, 4), traced_rows(1, chunk, 4)
+        got, _ = fr_big.fr_big_chunk(vt, s0, chunk, values=work,
+                                     trace_rows=rk)
+        want, _ = fr_big.fr_big_chunk_reference(vt, s0, chunk,
+                                                trace_rows=rp)
+        bad, _ = states_equal(got, want)
+        assert not bad, (what, bad)
+        assert torch.equal(rk, rp), (what, "trace rows differ from plain")
+        assert fr_rows_agree(rk, s0, got), what
+        big_cases.append({"case": what, "rounds": chunk,
+                          "flips": int(flips(rk, got.nits)[0])})
+        del vt, work, s0, got, want, rk, rp
+    out["fr_big_kernel"] = big_cases
+    del dev2
+
+    # the big singles to done, traced: time off and on, rounds per flip
+    big = {}
+    gen.manual_seed(SEED + 8192)
+    dev8 = torch.randint(1, 1000, (1, 8192, 8192), generator=gen,
+                         device="cuda", dtype=torch.int32).float()
+    for dev in (dev4, dev8):
+        sz = dev.shape[1]
+        vt, work = batch._stage(dev, True, None)
+        s0 = fr_init(vt, 1.0 / (sz + 1))
+        budget = 100_000
+        rows = traced_rows(1, budget, 4)
+        off, _ = fr_big.fr_big_chunk(vt, s0, budget, values=work)
+        on, _ = fr_big.fr_big_chunk(vt, s0, budget, values=work,
+                                    trace_rows=rows)
+        bad, _ = states_equal(on, off)
+        assert not bad and bool(on.done[0]), (sz, "trace on/off", bad)
+        assert fr_rows_agree(rows, s0, on), sz
+        nits = int(on.nits[0])
+        nflip = int(flips(rows, on.nits)[0])
+        run = rows[0, :nits]
+        card = run[:, 2]
+        entry = {"nits": nits, "nits_per_n": nits / sz, "flips": nflip,
+                 "rounds_per_flip": nits / max(nflip, 1),
+                 "forward_rounds": int((run[:, 1] == 0).sum()),
+                 "rounds_to_card_99pct": int((card < 0.99 * sz).sum()),
+                 "rounds_at_last_unmatched": int((card == sz - 1).sum())}
+        if sz == 4096:
+            entry["ms_off"], entry["ms_on"] = trace_ms(
+                lambda: fr_big.fr_big_chunk(vt, s0, budget, values=work),
+                lambda: fr_big.fr_big_chunk(vt, s0, budget, values=work,
+                                            trace_rows=rows), reps=3)
+            entry["big_kernel_time_ms"] = earlier.get("big_kernel_time_ms")
+        big[str(sz)] = entry
+        del vt, work, s0, off, on, rows
+    out["big_single_to_done"] = big
+    del dev4, dev8
+
+    # ksp_kernel, one sparse-stream batch, to done
+    bk, nk, mk, kk = 4096, 128, 512, 8
+    gen.manual_seed(SEED + 100)
+    cols, vals = device_arcs(gen, bk, nk, mk, kk, 300, 1000)
+    st = port.stage_batch_sparse_device(cols, vals, mk, eps=1.0 / mk)
+    plane, thr = st.values_nm, st.thresholds
+    eps = np.float32(st.eps_val)
+    budget = batch._SPARSE_KERNEL_BUDGET
+    k0 = ksp.khosla_init(plane)
+    rk, rp = traced_rows(bk, budget, 3), traced_rows(bk, budget, 3)
+    got = ksp.ksp_chunk(plane, k0, eps, thr, budget, trace_rows=rk)
+    want = ksp.ksp_chunk_reference(plane, k0, eps, thr, budget,
+                                   trace_rows=rp)
+    off = ksp.ksp_chunk(plane, k0, eps, thr, budget)
+    assert not ksp_states_equal(got, want), "ksp kernel vs plain"
+    assert not ksp_states_equal(got, off), "ksp kernel trace on/off"
+    assert not bool(ksp_active(got).any()), "not done within the budget"
+    assert torch.equal(rk, rp), "ksp_kernel trace rows differ from plain"
+    count = got.nits.long()
+    last = rk[torch.arange(bk, device="cuda"), (count - 1).clamp(min=0)]
+    assert bool((last[count > 0] == torch.stack(
+        [got.nits, torch.zeros_like(got.nits), torch.ones_like(got.nits)],
+        dim=1)[count > 0]).all())
+    ms_off, ms_on = trace_ms(
+        lambda: ksp.ksp_chunk(plane, k0, eps, thr, budget),
+        lambda: ksp.ksp_chunk(plane, k0, eps, thr, budget, trace_rows=rk))
+    out["ksp_kernel"] = {"shape": [bk, nk, plane.shape[2]],
+                         "rows": int(count.sum()),
+                         "nits_max": int(count.max()), "ms_off": ms_off,
+                         "ms_on": ms_on,
+                         "ksp_kernel_time_ms":
+                             earlier.get("ksp_kernel_time_ms")}
+    del cols, vals, st, plane, thr, k0, got, want, off, rk, rp
+
+    # the main path at full width: the north-star chunk through fr_chunk
+    b, n = 4096, 256
+    gen.manual_seed(SEED)
+    costs = torch.randint(1, 1000, (b, n, n), generator=gen, device="cuda",
+                          dtype=torch.int32).float()
+    vt, work = lattice_values(costs)
+    del costs
+    s0 = fr_init(vt, 1)
+    rounds = batch._fr_fused_schedule(b, n, 100_000)
+    off, _ = fr_kernel.fr_chunk(vt, s0, rounds, values=work)
+    sink = io.StringIO()
+    saved = sys.stderr
+    sys.stderr = sink
+    trace.set_debug(True)
+    try:
+        traced_wall_ms, (on, _) = sync_ms(
+            lambda: fr_kernel.fr_chunk(vt, s0, rounds, values=work))
+    finally:
+        trace.set_debug(False)
+        sys.stderr = saved
+    bad, _ = states_equal(on, off)
+    assert not bad, ("north-star trace on/off", bad)
+    lines = np.array(re.findall(FR_TRACE_LINE, sink.getvalue(), re.M),
+                     dtype=np.int64)
+    del sink
+    nits = off.nits.cpu().numpy().astype(np.int64)
+    assert len(lines) == int(nits.sum()), (len(lines), int(nits.sum()))
+    g = lines[:, 0]
+    assert np.array_equal(g, np.repeat(np.arange(b), nits)), "line order"
+    ends = np.cumsum(nits) - 1
+    final = np.stack([nits, off.forward_mode.cpu().numpy(),
+                      off.done.cpu().numpy()], axis=1).astype(np.int64)
+    assert np.array_equal(lines[ends][:, [1, 2, 4]], final), "last rows"
+    assert bool(off.done.all()) and np.all(lines[ends][:, 3] == n)
+    rows = traced_rows(b, rounds, 4)
+    fr_kernel.fr_chunk(vt, s0, rounds, values=work, trace_rows=rows)
+    assert fr_rows_agree(rows, s0, off)
+    ms_off, ms_on = trace_ms(
+        lambda: fr_kernel.fr_chunk(vt, s0, rounds, values=work),
+        lambda: fr_kernel.fr_chunk(vt, s0, rounds, values=work,
+                                   trace_rows=rows))
+    slow = int(nits.argmax())
+    card = rows[slow, :nits[slow], 2]
+    all_flips = flips(rows, off.nits).cpu().numpy()
+    out["north_star"] = {
+        "shape": [b, n, n], "rounds_budget": rounds,
+        "lines": int(len(lines)),
+        "log_bytes": b * rounds * 4 * 4,
+        "log_pieces": -(-b * rounds * 4 * 4 // round_log.MAX_LOG_BYTES),
+        "ms_off": ms_off, "ms_on": ms_on,
+        "kernel_time_ms": earlier.get("kernel_time_ms"),
+        "traced_wall_ms_with_printing": traced_wall_ms,
+        "states_equal_on_off": True,
+        "slowest": {"instance": slow, "rounds": int(nits[slow]),
+                    "flips": int(all_flips[slow]),
+                    "rounds_at_last_unmatched": int((card == n - 1).sum()),
+                    "rounds_to_card_99pct": int((card < 0.99 * n).sum())},
+        "rounds_p50": float(np.median(nits)),
+        "flips_p50": float(np.median(all_flips)),
+        "rounds_per_flip_p50": float(np.median(
+            nits / np.maximum(all_flips, 1)))}
+    del vt, work, s0, off, on, rows, lines
+
+    out["ptxas"] = {name: _build.ptxas_table(_build.BUILD_LOG[name])
+                    for name in ("fr_kernel", "fr_big_kernel", "ksp_kernel")
+                    if name in _build.BUILD_LOG}
+    out["tolerance"] = 0
+    emit(out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -2347,7 +2618,13 @@ def main() -> int:
     # ksp_kernel under the batch-sharded entry points
     phase_sharded(port, batch, mods, card, fr_init, scipy_lsa)
 
-    # 13. the run's total and the kernels line
+    # 13. the in-kernel round trace of the three round kernels
+    phase_kernel_trace(port, batch, fr_kernel, fr_big, ksp, fr_init, _build,
+                       {"kernel_time_ms": kernel_ms,
+                        "big_kernel_time_ms": big["ms"],
+                        "ksp_kernel_time_ms": kspt["ms"]})
+
+    # 14. the run's total and the kernels line
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     emit({"kernels": [{
         "name": "fr_kernel",

@@ -41,7 +41,10 @@
 //                                                         -- barrier
 //   control, computed by every thread from the same shared words: mode flip
 //   on a cardinality rise or a stall, doubling stall horizon, nits, done =
-//   (cardinality == S), and which list holds the next round's bidders.
+//   (cardinality == S), and which list holds the next round's bidders;
+//   with a round log (`trace`, null by default; kernel instances of their
+//   own), thread 0 writes the round's row: nits, mode, cardinality, done
+//   (ops/round_log.py).
 // The order of a list does not change any result: bids meet through a
 // commutative max, so the lists are built with one atomic a warp.
 // The keys and the control words alternate between two sets by round, so
@@ -159,14 +162,17 @@ template <typename T> struct Vec4;
 template <> struct Vec4<float> { using type = float4; };
 template <> struct Vec4<int32_t> { using type = int4; };
 
-template <typename T>
+// kTrace: the round log is written (`trace` not null).  The production
+// instances (false) carry no trace code.
+template <typename T, bool kTrace>
 __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSm)
 fr_rounds_kernel(const T* __restrict__ vals, const T* __restrict__ vals_t,
                  T* __restrict__ prices, T* __restrict__ profits,
                  int32_t* __restrict__ p2o, int32_t* __restrict__ o2p,
                  const T* __restrict__ eps, int32_t* __restrict__ meta,
                  long long* __restrict__ bid_rows, long long* prof,
-                 long long* stamps, int S, int sh, int rounds) {
+                 long long* stamps, int32_t* trace, int S, int sh,
+                 int rounds) {
   using V4 = typename Vec4<T>::type;
   using TT = typename Top<T>::type;
   constexpr int R = kBidders, U = kLoadsPerRow;
@@ -407,6 +413,15 @@ fr_rounds_kernel(const T* __restrict__ vals, const T* __restrict__ vals_t,
     rlist = flip ? out_col : out_row;
     pair ^= 1;
     done = card == S;
+    if constexpr (kTrace) {
+      if (tid == 0) {
+        int32_t* row = trace + (static_cast<size_t>(b) * rounds + it) * 4;
+        row[0] = nits;
+        row[1] = mode;
+        row[2] = card;
+        row[3] = done;
+      }
+    }
     lap(kProfCtrl);
     if (timing) {
       acc[kProfTotal] += clock64() - round_start;
@@ -446,7 +461,7 @@ fr_rounds_kernel(const T* __restrict__ vals, const T* __restrict__ vals_t,
 template <typename T>
 int launch(const void* vals, const void* vals_t, void* prices, void* profits,
            void* p2o, void* o2p, const void* eps, void* meta, void* bid_rows,
-           void* prof, void* stamps, int B, int S, int rounds,
+           void* prof, void* stamps, void* trace, int B, int S, int rounds,
            cudaStream_t stream) {
   int sh = 0;
   while ((1 << sh) < S) ++sh;  // bit length of S - 1
@@ -458,17 +473,19 @@ int launch(const void* vals, const void* vals_t, void* prices, void* profits,
   const size_t smem = static_cast<size_t>(S) *
                       (2 * sizeof(unsigned long long) + 3 * sizeof(T) +
                        8 * sizeof(int32_t));
+  auto kernel = trace ? fr_rounds_kernel<T, true> : fr_rounds_kernel<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fr_rounds_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  fr_rounds_kernel<T><<<B, threads, smem, stream>>>(
+  kernel<<<B, threads, smem, stream>>>(
       static_cast<const T*>(vals), static_cast<const T*>(vals_t),
       static_cast<T*>(prices), static_cast<T*>(profits),
       static_cast<int32_t*>(p2o), static_cast<int32_t*>(o2p),
       static_cast<const T*>(eps), static_cast<int32_t*>(meta),
       static_cast<long long*>(bid_rows), static_cast<long long*>(prof),
-      static_cast<long long*>(stamps), S, sh, rounds);
+      static_cast<long long*>(stamps), static_cast<int32_t*>(trace), S, sh,
+      rounds);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -477,14 +494,15 @@ int launch(const void* vals, const void* vals_t, void* prices, void* profits,
 // is_int: 0 for float32 values, 1 for the int32 lattice; S a multiple of 4
 // and both layouts 16-byte aligned (rows are read in 16-byte loads).
 // Pointers are device pointers of contiguous tensors; bid_rows [B], prof
-// [kProfWords] and stamps [B, 2] (int64) may be null.  Returns the
-// cudaError_t of the launch (0 on success).
+// [kProfWords] and stamps [B, 2] (int64) and the round log trace
+// [B, rounds, 4] (int32; rows of rounds not run are left as they are) may be
+// null.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int slap_fr_rounds(int is_int, const void* vals,
                               const void* vals_t, void* prices, void* profits,
                               void* p2o, void* o2p, const void* eps,
                               void* meta, void* bid_rows, void* prof,
-                              void* stamps, int B, int S, int rounds,
-                              void* stream) {
+                              void* stamps, void* trace, int B, int S,
+                              int rounds, void* stream) {
   if (B <= 0) return 0;
   if (S <= 0 || S % 4 != 0 ||
       reinterpret_cast<uintptr_t>(vals) % 16 != 0 ||
@@ -493,9 +511,9 @@ extern "C" int slap_fr_rounds(int is_int, const void* vals,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_int)
     return launch<int32_t>(vals, vals_t, prices, profits, p2o, o2p, eps, meta,
-                           bid_rows, prof, stamps, B, S, rounds, st);
+                           bid_rows, prof, stamps, trace, B, S, rounds, st);
   return launch<float>(vals, vals_t, prices, profits, p2o, o2p, eps, meta,
-                       bid_rows, prof, stamps, B, S, rounds, st);
+                       bid_rows, prof, stamps, trace, B, S, rounds, st);
 }
 
 extern "C" const char* slap_cuda_error_string(int code) {

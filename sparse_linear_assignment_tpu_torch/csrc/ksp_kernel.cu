@@ -41,7 +41,11 @@
 //      at the new owner; a bidder that lost (or has no arc) joins the next
 //      list; a dropped one leaves;
 //                                                         -- barrier
-//   and the next list's count ends the loop when it is 0.
+//   and the next list's count ends the loop when it is 0.  With a round
+//   log (`trace`, null by default; a kernel instance of its own) thread 0
+//   writes the round's row before that test: nits (the entry's plus the
+//   rounds run), whether a person is still active (0 or 1, as JAX's max),
+//   done.
 // The order of a list does not change any result: bids meet through a
 // commutative max.  The lists and their counts alternate between two sets
 // by round.  A loser that reads its object's key after the winner set it to
@@ -89,13 +93,18 @@ __device__ __forceinline__ unsigned long long rest_key(int32_t owner) {
   return static_cast<unsigned long long>(~static_cast<uint32_t>(owner));
 }
 
+// kTrace: the round log is written (`trace` not null).  The production
+// instance (false) carries no trace code.
+template <bool kTrace>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 ksp_rounds_kernel(const float* __restrict__ vals, float* __restrict__ prices,
-                  int32_t* __restrict__ p2o, unsigned char* __restrict__ dropped,
+                  int32_t* __restrict__ p2o,
+                  unsigned char* __restrict__ dropped,
                   int32_t* __restrict__ nits,
                   const float* __restrict__ thresholds,
                   long long* __restrict__ act_rows, long long* prof,
-                  long long* stamps, float eps, int N, int M, int rounds) {
+                  long long* stamps, int32_t* trace, float eps, int N, int M,
+                  int rounds) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -264,6 +273,14 @@ ksp_rounds_kernel(const float* __restrict__ vals, float* __restrict__ prices,
       ++ran;
       nact = *next_cnt;
       cur ^= 1;
+      if constexpr (kTrace) {
+        if (tid == 0) {
+          int32_t* row = trace + (static_cast<size_t>(b) * rounds + it) * 3;
+          row[0] = nits[b] + ran;
+          row[1] = nact > 0;
+          row[2] = nact == 0;
+        }
+      }
       if (nact == 0) break;  // the instance is done; uniform over the CTA
     }
     if (timing) {
@@ -309,28 +326,33 @@ size_t smem_bytes(int N, int M) {
 // (M a multiple of 4 and vals 16-byte aligned: rows are read in 16-byte
 // loads), prices [B, M] float32, p2o [B, N] int32, dropped [B, N] bytes (0
 // or 1), nits [B] int32, thresholds [B] float32; act_rows [B], prof
-// [kProfWords] and stamps [B, 2] (int64) may be null.  p2o must be a
-// matching (no object owned twice).  prices, p2o, dropped and nits are
-// updated in place.  Returns the cudaError_t of the launch (0 on success).
+// [kProfWords] and stamps [B, 2] (int64) and the round log trace
+// [B, rounds, 3] (int32; rows of rounds not run are left as they are) may
+// be null.  p2o must be a matching (no object owned twice).  prices, p2o,
+// dropped and nits are updated in place.  Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int slap_ksp_rounds(const void* vals, void* prices, void* p2o,
                                void* dropped, void* nits,
                                const void* thresholds, void* act_rows,
-                               void* prof, void* stamps, float eps, int B,
-                               int N, int M, int rounds, void* stream) {
+                               void* prof, void* stamps, void* trace,
+                               float eps, int B, int N, int M, int rounds,
+                               void* stream) {
   if (B <= 0) return 0;
   if (M <= 0 || M % 4 != 0 || reinterpret_cast<uintptr_t>(vals) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(N, M);
+  auto kernel = trace ? ksp_rounds_kernel<true> : ksp_rounds_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      ksp_rounds_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  ksp_rounds_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(vals), static_cast<float*>(prices),
       static_cast<int32_t*>(p2o), static_cast<unsigned char*>(dropped),
       static_cast<int32_t*>(nits), static_cast<const float*>(thresholds),
       static_cast<long long*>(act_rows), static_cast<long long*>(prof),
-      static_cast<long long*>(stamps), eps, N, M, rounds);
+      static_cast<long long*>(stamps), static_cast<int32_t*>(trace), eps, N,
+      M, rounds);
   return static_cast<int>(cudaGetLastError());
 }
 

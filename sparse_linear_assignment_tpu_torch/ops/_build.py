@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -94,6 +95,31 @@ def _finish(name: str, job) -> None:
     finally:
         if tmp.exists():
             tmp.unlink()
+
+
+def ptxas_table(log: str) -> dict:
+    """Each kernel's registers, stack frame and spill bytes from one
+    build's ``-Xptxas -v`` output (a ``BUILD_LOG`` entry), keyed by the
+    kernel's mangled name: ``{"registers", "stack", "spill_stores",
+    "spill_loads"}``."""
+    table, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            table.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            table[name].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            table[name]["registers"] = int(m.group(1))
+    return {k: v for k, v in table.items() if "registers" in v}
 
 
 def build_all() -> None:

@@ -237,12 +237,13 @@ def _price_at_best(problem, prices, best_col, best, best_val):
 
 
 def khosla_round(problem, s: KhoslaState, eps,
-                 price_threshold) -> KhoslaState:
+                 price_threshold, trace: bool = True) -> KhoslaState:
     """One synchronous Khosla round (choice, drop, price update, assign)
     of every instance, dense or padded.  ``eps`` is a scalar,
     ``price_threshold`` a ``[B]`` tensor of a batch (or a scalar).  An
     instance with no active person (unassigned and not dropped) comes
-    out unchanged."""
+    out unchanged.  ``trace=False`` leaves out the round's trace line
+    (the kernel's plain version prints the kernel's rows instead)."""
     dtype, dev = s.prices.dtype, s.prices.device
     neg_inf = _neg_inf(dtype, dev)
     eps = torch.as_tensor(eps, dtype=dtype, device=dev)
@@ -265,7 +266,7 @@ def khosla_round(problem, s: KhoslaState, eps,
     prices, p2o, o2p = resolve_and_assign(
         problem, s.prices, s.p2o, s.o2p, bid, best_col
     )
-    if is_enabled():
+    if trace and is_enabled():
         trace_round(
             "khosla round {}: active={} dropped={}",
             s.nits, active.sum(dim=-1), drop_now.sum(dim=-1),

@@ -39,7 +39,9 @@ a round.  The design against that latency:
 
 :func:`plan` sizes the launch (cluster size, slice width, bidders a
 warp step, partials a pass, shared-memory bytes) and raises when an
-instance does not fit.  On CPU tensors :func:`fr_big_chunk` runs the
+instance does not fit.  With tracing on (``SLAP_TPU_DEBUG``) or
+``trace_rows`` given, the cluster's leader thread logs one row a round
+(``ops/round_log.py``).  On CPU tensors :func:`fr_big_chunk` runs the
 plain PyTorch version :func:`fr_big_chunk_reference`; on CUDA tensors it
 launches the kernel or raises.  ``LAUNCHES`` counts the launches.
 """
@@ -51,13 +53,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import _build
+from . import _build, round_log
 from .fr_dense import FRState
 from .fr_kernel import (
     check_bid_rows,
     check_state,
-    fr_chunk_reference,
     kernel_state,
+    plain_chunk,
     state_from_kernel,
 )
 
@@ -153,7 +155,7 @@ def _kernel_lib() -> ctypes.CDLL:
         lib = _build.load("fr_big_kernel")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.slap_fr_big_rounds.argtypes = [
-            p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p,
+            p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p,
         ]
         lib.slap_fr_big_rounds.restype = ctypes.c_int
         lib.slap_fr_big_probe.argtypes = [p, i, i, p, p]
@@ -165,16 +167,18 @@ def _kernel_lib() -> ctypes.CDLL:
 
 
 def fr_big_chunk_reference(values_t, state: FRState, rounds: int,
-                           bid_rows=None):
+                           bid_rows=None, trace_rows=None):
     """Plain PyTorch version of the kernel: ``fr_round(skip_certificate=
     True)`` in a loop with the kernel's early exit (the plain version of
     the batched kernel, at batch 1).  ``bid_rows [1]`` int64, if given,
-    gains the number of bidder rows read."""
-    return fr_chunk_reference(values_t, state, rounds, bid_rows)
+    gains the number of bidder rows read; ``trace_rows`` receives the
+    kernel's round trace (:func:`fr_big_chunk`)."""
+    return plain_chunk(values_t, state, rounds, bid_rows, trace_rows,
+                       round_log.FR_BIG_FORMAT)
 
 
 def fr_big_chunk(values_t, state: FRState, rounds: int, values=None,
-                 bid_rows=None, phase_cycles=None):
+                 bid_rows=None, phase_cycles=None, trace_rows=None):
     """Up to ``rounds`` rounds of one instance; returns ``(state,
     done)``.
 
@@ -185,7 +189,13 @@ def fr_big_chunk(values_t, state: FRState, rounds: int, values=None,
     tensors run :func:`fr_big_chunk_reference`; CUDA tensors launch the
     kernel.  ``phase_cycles``, a contiguous int64 tensor of
     ``len(PHASES)`` on the card, gains the kernel's phase counters
-    (CUDA tensors only: the plain version has no cycles)."""
+    (CUDA tensors only: the plain version has no cycles).
+
+    Round trace: with tracing on, the rounds are printed after the
+    launch, one line a round in JAX's format
+    (``round_log.FR_BIG_FORMAT``); ``trace_rows``, a contiguous int32
+    ``[1, rounds, 4]`` tensor on the values' device, receives the rows
+    (``round_log.FR_FIELDS``), on either device."""
     check_state(values_t, state)
     if values_t.shape[0] != 1:
         raise ValueError(f"fr_big_chunk solves one instance, got a batch "
@@ -193,16 +203,24 @@ def fr_big_chunk(values_t, state: FRState, rounds: int, values=None,
     if values_t.dtype != torch.float32:
         raise ValueError(f"fr_big_chunk takes float32 values, got "
                          f"{values_t.dtype}")
+    round_log.check_rows(trace_rows, 1, rounds, len(round_log.FR_FIELDS),
+                         values_t.device)
     if values_t.device.type == "cpu":
         if phase_cycles is not None:
             raise ValueError("phase_cycles counts the CUDA kernel's clock "
                              "cycles; the plain version has none")
-        return fr_big_chunk_reference(values_t, state, rounds, bid_rows)
+        return fr_big_chunk_reference(values_t, state, rounds, bid_rows,
+                                      trace_rows)
     if values_t.device.type != "cuda":
         raise ValueError(f"fr_big_chunk runs on cpu or cuda, not "
                          f"{values_t.device}")
-    return _fr_big_chunk_cuda(values_t, state, rounds, values, bid_rows,
-                              phase_cycles)
+    new = round_log.launch_traced(
+        lambda s, r, log: _fr_big_chunk_cuda(values_t, s, r, values,
+                                             bid_rows, phase_cycles, log),
+        state, rounds, trace_rows, round_log.FR_BIG_FORMAT, 1,
+        len(round_log.FR_FIELDS), values_t.device, lambda s: s.nits,
+    )
+    return new, new.done.all()
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -212,7 +230,7 @@ def _raise_on(rc: int, what: str) -> None:
 
 
 def _fr_big_chunk_cuda(values_t, state, rounds, values, bid_rows,
-                       phase_cycles):
+                       phase_cycles, log):
     global LAUNCHES
     n = values_t.shape[2]
     pl = plan(n)
@@ -239,13 +257,13 @@ def _fr_big_chunk_cuda(values_t, state, rounds, values, bid_rows,
             eps.data_ptr(), meta.data_ptr(),
             bid_rows.data_ptr() if bid_rows is not None else None,
             phase_cycles.data_ptr() if phase_cycles is not None else None,
+            log.data_ptr() if log is not None else None,
             n, pl.cluster, pl.width, pl.rows_per_step, pl.pass_rows,
             pl.smem_bytes, int(rounds), stream,
         )
     _raise_on(rc, "big FR kernel")
     LAUNCHES += 1
-    new = state_from_kernel(state, prices, profits, p2o, o2p, meta)
-    return new, new.done.all()
+    return state_from_kernel(state, prices, profits, p2o, o2p, meta)
 
 
 def probe(chain: torch.Tensor, iters: int, cluster: int = MAX_CLUSTER):

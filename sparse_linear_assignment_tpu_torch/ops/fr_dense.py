@@ -218,6 +218,7 @@ def fr_round(
     max_iterations: int,
     scale_factor: float = 0.15,
     skip_certificate: bool = False,
+    trace: bool = True,
 ) -> FRState:
     """One forward-reverse round of every instance, with the JAX
     package's ε-scaling bookkeeping.  A no-op for instances whose
@@ -228,7 +229,9 @@ def fr_round(
     certificate runs every round and, on a full but not yet certified
     assignment, ε shrinks by ``scale_factor`` with keep-valid pair
     retention (released persons free their objects; profits are
-    refreshed to the exact max profit)."""
+    refreshed to the exact max profit).  ``trace=False`` leaves out the
+    round's trace line: the kernels' plain versions print the kernel's
+    rows instead (``ops/round_log.py``)."""
     dtype, dev = s.prices.dtype, s.prices.device
     if not dtype.is_floating_point and not skip_certificate:
         # the integer-auction mode has no fractional ε-ladder
@@ -259,10 +262,11 @@ def fr_round(
     nits = s.nits + (~s.done).to(torch.int32)
     num_unassigned = (p2o == _INT_MAX).sum(dim=1)
     fully = (num_unassigned == 0) & ~s.done
-    trace_round(
-        "fr round {}: unassigned={} forward={} eps={}",
-        nits, num_unassigned, forward_mode, s.eps,
-    )
+    if trace:
+        trace_round(
+            "fr round {}: unassigned={} forward={} eps={}",
+            nits, num_unassigned, forward_mode, s.eps,
+        )
 
     if skip_certificate:
         return FRState(

@@ -42,7 +42,9 @@ a round's cycles in the bids.  The design against that:
   transpose costs one extra copy of the values.
 
 ``phase_cycles`` splits the leader thread's cycles by phase; ``stamps``
-gives each CTA's start and end, the waves and the straggler.  Limits:
+gives each CTA's start and end, the waves and the straggler; with
+tracing on (``SLAP_TPU_DEBUG``) or ``trace_rows`` given, each CTA's
+thread 0 logs one row a round (``ops/round_log.py``).  Limits:
 ``S`` a multiple of 4 (16-byte rows), ``60 S`` bytes of shared memory,
 ``S <= MAX_SIDE``.
 
@@ -58,7 +60,8 @@ import ctypes
 import torch
 
 from ..solution import UNASSIGNED
-from . import _build
+from ..utils.trace import is_enabled
+from . import _build, round_log
 from .fr_dense import FRState, fr_round
 
 #: kernel launches made by :func:`fr_chunk` in this process
@@ -85,7 +88,7 @@ def _kernel_lib() -> ctypes.CDLL:
         lib = _build.load("fr_kernel")
         p = ctypes.c_void_p
         lib.slap_fr_rounds.argtypes = [
-            ctypes.c_int, p, p, p, p, p, p, p, p, p, p, p,
+            ctypes.c_int, p, p, p, p, p, p, p, p, p, p, p, p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
         ]
         lib.slap_fr_rounds.restype = ctypes.c_int
@@ -121,13 +124,27 @@ def check_state(values_t: torch.Tensor, states: FRState) -> None:
 
 
 def fr_chunk_reference(values_t, states: FRState, rounds: int,
-                       bid_rows=None):
+                       bid_rows=None, trace_rows=None):
     """Plain PyTorch version of the kernel: a loop of ``fr_round(
     skip_certificate=True)`` with the kernel's early exit.  Finished
     instances are frozen by ``fr_round`` itself, so stopping once all
     are done changes nothing.  ``bid_rows [B]`` int64, if given, gains
     the number of bidder rows each instance read (the unassigned
-    entries of the bidding side, per round)."""
+    entries of the bidding side, per round); ``trace_rows`` receives the
+    kernel's round trace (:func:`fr_chunk`)."""
+    return plain_chunk(values_t, states, rounds, bid_rows, trace_rows,
+                       round_log.FR_FORMAT)
+
+
+def plain_chunk(values_t, states: FRState, rounds: int, bid_rows,
+                trace_rows, fmt: str):
+    """The plain version of both FR kernels; ``fmt`` is the kernel's
+    trace line."""
+    b = values_t.shape[0]
+    width = len(round_log.FR_FIELDS)
+    round_log.check_rows(trace_rows, b, rounds, width, values_t.device)
+    log = trace_rows is not None or is_enabled()
+    rows = []
     s = states
     for _ in range(rounds):
         if bool(s.done.all()):
@@ -135,7 +152,18 @@ def fr_chunk_reference(values_t, states: FRState, rounds: int,
         if bid_rows is not None:
             col = torch.where(s.forward_mode[:, None], s.p2o, s.o2p)
             bid_rows += ((col == UNASSIGNED) & ~s.done[:, None]).sum(dim=1)
-        s = fr_round(values_t, s, 0, 0, _NO_LIMIT, skip_certificate=True)
+        ran = ~s.done
+        s = fr_round(values_t, s, 0, 0, _NO_LIMIT, skip_certificate=True,
+                     trace=False)
+        if log:
+            row = torch.stack(
+                [s.nits, s.forward_mode, (s.p2o != UNASSIGNED).sum(dim=1),
+                 s.done], dim=1,
+            ).to(torch.int32)
+            rows.append(torch.where(ran[:, None], row, 0))
+    if log:
+        round_log.plain_rows(rows, trace_rows, fmt, s.nits - states.nits, b,
+                             width, values_t.device)
     s = s._replace(
         eps=states.eps,
         nreductions=states.nreductions,
@@ -145,7 +173,7 @@ def fr_chunk_reference(values_t, states: FRState, rounds: int,
 
 
 def fr_chunk(values_t, states: FRState, rounds: int, values=None,
-             bid_rows=None, phase_cycles=None, stamps=None):
+             bid_rows=None, phase_cycles=None, stamps=None, trace_rows=None):
     """``rounds`` fused rounds over a batched :class:`FRState`; returns
     ``(states, all_done)``.
 
@@ -155,20 +183,38 @@ def fr_chunk(values_t, states: FRState, rounds: int, values=None,
     through; ``optimal_found |= done``.  CPU tensors run
     :func:`fr_chunk_reference`; CUDA tensors launch the kernel.
 
+    Round trace: with tracing on, each instance's rounds are printed
+    after the launch, one line a round in JAX's format
+    (``round_log.FR_FORMAT``; ``g`` is the instance's index in the
+    batch); ``trace_rows``, a contiguous int32 ``[B, rounds, 4]`` tensor
+    on the values' device, receives the rows (``round_log.FR_FIELDS``
+    after each round run, zero after the instance stopped), on either
+    device.
+
     Measurement (CUDA tensors only: the plain version has no clock):
     ``phase_cycles``, a contiguous int64 tensor of ``len(PHASES)``,
     gains the kernel's phase counters; ``stamps``, a contiguous int64
     ``[B, 2]`` tensor, receives each CTA's start and end on the card's
-    global timer (nanoseconds)."""
+    global timer (nanoseconds; of the last launch where a trace longer
+    than ``round_log.MAX_LOG_BYTES`` runs in pieces)."""
     check_state(values_t, states)
     check_counters(values_t, len(PHASES), phase_cycles, stamps)
+    b = values_t.shape[0]
+    round_log.check_rows(trace_rows, b, rounds, len(round_log.FR_FIELDS),
+                         values_t.device)
     if values_t.device.type == "cpu":
-        return fr_chunk_reference(values_t, states, rounds, bid_rows)
+        return fr_chunk_reference(values_t, states, rounds, bid_rows,
+                                  trace_rows)
     if values_t.device.type != "cuda":
         raise ValueError(f"fr_chunk runs on cpu or cuda, not "
                          f"{values_t.device}")
-    return _fr_chunk_cuda(values_t, states, rounds, values, bid_rows,
-                          phase_cycles, stamps)
+    new = round_log.launch_traced(
+        lambda s, r, log: _fr_chunk_cuda(values_t, s, r, values, bid_rows,
+                                         phase_cycles, stamps, log),
+        states, rounds, trace_rows, round_log.FR_FORMAT, b,
+        len(round_log.FR_FIELDS), values_t.device, lambda s: s.nits,
+    )
+    return new, new.done.all()
 
 
 def check_counters(values, n_phases: int, phase_cycles, stamps) -> None:
@@ -191,7 +237,7 @@ def check_counters(values, n_phases: int, phase_cycles, stamps) -> None:
 
 
 def _fr_chunk_cuda(values_t, states, rounds, values, bid_rows, phase_cycles,
-                   stamps):
+                   stamps, log):
     global LAUNCHES
     b, m, n = values_t.shape
     if n > MAX_SIDE or n % 4:
@@ -215,14 +261,14 @@ def _fr_chunk_cuda(values_t, states, rounds, values, bid_rows, phase_cycles,
             bid_rows.data_ptr() if bid_rows is not None else None,
             phase_cycles.data_ptr() if phase_cycles is not None else None,
             stamps.data_ptr() if stamps is not None else None,
+            log.data_ptr() if log is not None else None,
             b, n, int(rounds), stream,
         )
     if rc != 0:
         msg = lib.slap_cuda_error_string(rc).decode()
         raise RuntimeError(f"FR kernel launch failed: {msg} ({rc})")
     LAUNCHES += 1
-    new = state_from_kernel(states, prices, profits, p2o, o2p, meta)
-    return new, new.done.all()
+    return state_from_kernel(states, prices, profits, p2o, o2p, meta)
 
 
 def kernel_state(states: FRState, dtype):

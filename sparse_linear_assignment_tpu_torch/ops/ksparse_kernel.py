@@ -44,7 +44,9 @@ over every person and object a round, 256 threads) kept about one
   first touch few rows.
 
 ``phase_cycles`` splits the leader thread's cycles by phase; ``stamps``
-gives each CTA's start and end, the waves and the straggler.  Limits:
+gives each CTA's start and end, the waves and the straggler; with
+tracing on (``SLAP_TPU_DEBUG``) or ``trace_rows`` given, each CTA's
+thread 0 logs one row a round (``ops/round_log.py``).  Limits:
 float32 values; ``M'`` a multiple of 4 (16-byte rows); ``12 M' + 17 N``
 bytes of shared memory within ``MAX_SMEM_BYTES`` (an instance of 128
 persons may have up to about 19,000 objects).  The staging code pads the
@@ -64,7 +66,8 @@ import ctypes
 import torch
 
 from ..solution import UNASSIGNED
-from . import _build
+from ..utils.trace import is_enabled
+from . import _build, round_log
 from .auction import KhoslaState, khosla_round
 from .dense import DenseProblem
 from .fr_kernel import check_counters
@@ -101,7 +104,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     used for the variant builds of ``tools/ksp_kernel_variants.py``)."""
     p = ctypes.c_void_p
     lib.slap_ksp_rounds.argtypes = [
-        p, p, p, p, p, p, p, p, p, ctypes.c_float,
+        p, p, p, p, p, p, p, p, p, p, ctypes.c_float,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
     ]
     lib.slap_ksp_rounds.restype = ctypes.c_int
@@ -172,16 +175,23 @@ def _check_act_rows(act_rows, b: int, device) -> None:
 
 
 def ksp_chunk_reference(values_nm, states: KhoslaState, eps, thresholds,
-                        rounds: int, act_rows=None) -> KhoslaState:
+                        rounds: int, act_rows=None,
+                        trace_rows=None) -> KhoslaState:
     """Plain PyTorch version of the kernel: a loop of
     :func:`~.auction.khosla_round` on the transposed view of the plane,
     stopped once no instance has an active person.  A round leaves an
     instance without active persons unchanged, which is the kernel's
     per-instance early exit.  Any float dtype.  ``act_rows [B]`` int64,
     if given, gains the number of active persons' rows each instance
-    read."""
+    read; ``trace_rows`` receives the kernel's round trace
+    (:func:`ksp_chunk`)."""
     check_state(values_nm, states, thresholds)
-    _check_act_rows(act_rows, values_nm.shape[0], values_nm.device)
+    b = values_nm.shape[0]
+    width = len(round_log.KSP_FIELDS)
+    _check_act_rows(act_rows, b, values_nm.device)
+    round_log.check_rows(trace_rows, b, rounds, width, values_nm.device)
+    log = trace_rows is not None or is_enabled()
+    rows = []
     problem = DenseProblem(values_nm.transpose(1, 2))
     s = states
     for _ in range(rounds):
@@ -190,13 +200,21 @@ def ksp_chunk_reference(values_nm, states: KhoslaState, eps, thresholds,
             break
         if act_rows is not None:
             act_rows += active.sum(dim=1)
-        s = khosla_round(problem, s, eps, thresholds)
+        s = khosla_round(problem, s, eps, thresholds, trace=False)
+        if log:
+            left = ((s.p2o == UNASSIGNED) & ~s.dropped).any(dim=1)
+            row = torch.stack([s.nits, left, ~left], dim=1).to(torch.int32)
+            rows.append(torch.where(active.any(dim=1)[:, None], row, 0))
+    if log:
+        round_log.plain_rows(rows, trace_rows, round_log.KSP_FORMAT,
+                             s.nits - states.nits, b, width,
+                             values_nm.device)
     return s._replace(o2p=states.o2p)
 
 
 def ksp_chunk(values_nm, states: KhoslaState, eps, thresholds,
               rounds: int, act_rows=None, phase_cycles=None,
-              stamps=None) -> KhoslaState:
+              stamps=None, trace_rows=None) -> KhoslaState:
     """Up to ``rounds`` fused Khosla rounds over a batched
     :class:`KhoslaState` on the densified person-major plane
     ``values_nm [B, N, M']`` (float32).  ``eps`` is a scalar,
@@ -205,6 +223,13 @@ def ksp_chunk(values_nm, states: KhoslaState, eps, thresholds,
     tensors run :func:`ksp_chunk_reference`; CUDA tensors launch the
     kernel.
 
+    Round trace: with tracing on, each instance's rounds are printed
+    after the launch, one line a round in JAX's format
+    (``round_log.KSP_FORMAT``); ``trace_rows``, a contiguous int32
+    ``[B, rounds, 3]`` tensor on the values' device, receives the rows
+    (``round_log.KSP_FIELDS`` after each round run, zero after the
+    instance stopped), on either device.
+
     Measurement (CUDA tensors only: the plain version has no clock):
     ``phase_cycles``, a contiguous int64 tensor of ``len(PHASES)``,
     gains the kernel's phase counters; ``stamps``, a contiguous int64
@@ -212,18 +237,26 @@ def ksp_chunk(values_nm, states: KhoslaState, eps, thresholds,
     global timer (nanoseconds)."""
     check_state(values_nm, states, thresholds)
     check_counters(values_nm, len(PHASES), phase_cycles, stamps)
+    b = values_nm.shape[0]
+    round_log.check_rows(trace_rows, b, rounds, len(round_log.KSP_FIELDS),
+                         values_nm.device)
     if values_nm.device.type == "cpu":
         return ksp_chunk_reference(values_nm, states, eps, thresholds,
-                                   rounds, act_rows)
+                                   rounds, act_rows, trace_rows)
     if values_nm.device.type != "cuda":
         raise ValueError(f"ksp_chunk runs on cpu or cuda, not "
                          f"{values_nm.device}")
-    return _ksp_chunk_cuda(values_nm, states, eps, thresholds, rounds,
-                           act_rows, phase_cycles, stamps)
+    return round_log.launch_traced(
+        lambda s, r, log: _ksp_chunk_cuda(values_nm, s, eps, thresholds, r,
+                                          act_rows, phase_cycles, stamps,
+                                          log),
+        states, rounds, trace_rows, round_log.KSP_FORMAT, b,
+        len(round_log.KSP_FIELDS), values_nm.device, lambda s: s.nits,
+    )
 
 
 def _ksp_chunk_cuda(values_nm, states, eps, thresholds, rounds, act_rows,
-                    phase_cycles, stamps):
+                    phase_cycles, stamps, log):
     global LAUNCHES
     b, n, m = values_nm.shape
     if values_nm.dtype != torch.float32:
@@ -259,6 +292,7 @@ def _ksp_chunk_cuda(values_nm, states, eps, thresholds, rounds, act_rows,
             act_rows.data_ptr() if act_rows is not None else None,
             phase_cycles.data_ptr() if phase_cycles is not None else None,
             stamps.data_ptr() if stamps is not None else None,
+            log.data_ptr() if log is not None else None,
             float(eps), b, n, m, int(rounds), stream,
         )
     if rc != 0:

@@ -1,4 +1,5 @@
-"""Tracing: gated host and round prints, and a profiler context.
+"""Tracing: gated host, round and in-kernel round prints, and a profiler
+context.
 
 Gated on the same ``SLAP_TPU_DEBUG`` environment variable as the JAX
 package.  PyTorch runs eagerly, so a round trace formats its tensors
@@ -40,6 +41,16 @@ def trace_round(fmt: str, *args) -> None:
     if _DEBUG:
         vals = [a.tolist() if hasattr(a, "tolist") else a for a in args]
         print(fmt.format(*vals), file=sys.stderr, flush=True)
+
+
+def trace_kernel_round(fmt: str, *args) -> None:
+    """One round of a kernel's in-kernel trace (the JAX package's
+    ``pl.debug_print`` sites in its three round kernels), printed to
+    stderr when tracing is enabled.  The CUDA kernels log their rows on
+    the card and the wrappers print them after the launch
+    (``ops/round_log.py``); the plain versions print the same rows."""
+    if _DEBUG:
+        print(fmt.format(*args), file=sys.stderr, flush=True)
 
 
 @contextlib.contextmanager

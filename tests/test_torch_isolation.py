@@ -29,6 +29,7 @@ def test_import_loads_no_jax():
         "import sparse_linear_assignment_tpu_torch.ops.dense\n"
         "import sparse_linear_assignment_tpu_torch.ops.auction\n"
         "import sparse_linear_assignment_tpu_torch.ops.ksparse_kernel\n"
+        "import sparse_linear_assignment_tpu_torch.ops.round_log\n"
         "import sparse_linear_assignment_tpu_torch.generators\n"
         "import sparse_linear_assignment_tpu_torch.cpu_reference\n"
         "import sparse_linear_assignment_tpu_torch.utils.trace\n"
@@ -63,7 +64,7 @@ def test_sources_import_no_jax():
     names = {p.relative_to(PKG).as_posix() for p in files}
     assert {"solver.py", "ksparse.py", "symmetric.py", "hybrid.py",
             "ops/padded.py", "ops/compact.py", "ops/prefix.py",
-            "utils/compaction.py", "parallel/__init__.py",
+            "utils/compaction.py", "ops/round_log.py", "parallel/__init__.py",
             "parallel/sharded.py", "parallel/collectives.py",
             "parallel/dryrun.py"} <= names
     offenders = []

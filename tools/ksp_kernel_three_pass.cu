@@ -243,15 +243,18 @@ size_t smem_bytes(int N, int M) {
 // Pointers are device pointers of contiguous tensors: vals [B, N, M] float32,
 // prices [B, M] float32, p2o [B, N] int32, dropped [B, N] bytes (0 or 1),
 // nits [B] int32, thresholds [B] float32; act_rows [B], prof [kProfWords]
-// and stamps [B, 2] (int64) may be null.
-// prices, p2o, dropped and nits are updated in place.  Returns the
-// cudaError_t of the launch (0 on success).
+// and stamps [B, 2] (int64) may be null; `trace` (the shipped kernel's
+// round log) must be.  prices, p2o, dropped and nits are updated in place.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int slap_ksp_rounds(const void* vals, void* prices, void* p2o,
                                void* dropped, void* nits,
                                const void* thresholds, void* act_rows,
-                               void* prof, void* stamps, float eps, int B,
-                               int N, int M, int rounds, void* stream) {
+                               void* prof, void* stamps, void* trace,
+                               float eps, int B, int N, int M, int rounds,
+                               void* stream) {
   if (B <= 0) return 0;
+  // this design keeps no round log (the shipped kernel's `trace`)
+  if (trace) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(N, M);
   cudaError_t err = cudaFuncSetAttribute(
       ksp_rounds_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
