@@ -29,6 +29,13 @@ drives the port's paths through ``solve_batch``:
   scipy's objective on a sample), the eps-scaling path on 512 x 256²
   (``solver="forward"``), rectangular ``linear_sum_assignment``; the
   Khosla engine and the plain-rounds FR route (float64, N % 128 != 0);
+- the single-instance dense round ``fused_dense_round`` on its own
+  kernel (``csrc/dense_round_single.cu``; no path calls it): bit-equal to
+  the plain round at every checkpoint of the forward chunk's check, and
+  timed at 256², 512 x 256 and 4096² from the opening and a late state,
+  beside its bound, a latency floor, the ``torch.profiler`` count of
+  what one call issues (one launch, no memcpy) and the route it took
+  before that kernel (the chunk kernel at B = 1);
 - the reference-crate API, which runs no kernel of the port (plain
   PyTorch rounds, graphed, and the native engine): the README example on
   every engine, the error probes and infeasible instances; the
@@ -71,6 +78,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1043,17 +1051,18 @@ def forward_states_differ(a, b):
             if not torch.equal(getattr(a, k), getattr(b, k))]
 
 
-def phase_dense_chunk_vs_plain(dr, forward_init):
+def phase_dense_chunk_vs_plain(dr, drs, forward_init):
     """The forward chunk kernel against its plain version, bit for bit,
     on every ForwardState field, ``alldone`` and the rows read, after 1,
     2, 5 and 64 rounds and then every 64 to done: forward-rect at full
     size, a square batch through its eps-reductions, forced done flags
     with a per-instance eps, a ``max_iterations`` that ends inside a
     chunk, a -inf plane with single-arc persons, and shapes off the
-    16-byte path.  At each checkpoint the single-round entry points
-    against their plain version: the round as the state stands and with
-    forced done flags and a per-instance eps, and ``fused_dense_round``
-    against the batch at B = 1."""
+    16-byte path.  At each checkpoint ``fused_dense_round`` (the
+    single-instance kernel) on two instances against the plain round at
+    B = 1, as the state stands and with forced done flags and a
+    per-instance eps; at the first four also the batch's single-round
+    entry in both forms."""
     gen = torch.Generator(device="cuda")
     cases = []
     worst = 0.0
@@ -1111,8 +1120,8 @@ def phase_dense_chunk_vs_plain(dr, forward_init):
             if bool(gdone) != bool(wdone):
                 bad.append("alldone")
             assert not bad, (name, total, bad)
-            if total <= 64 and b <= 512:
-                worst = max(worst, check_single_round(dr, vals, got, name))
+            worst = max(worst, check_single_round(
+                dr, drs, vals, got, name, total <= 64 and b <= 512))
             if bool(wdone):
                 break
         assert bool(got.done.all()), (name, "not done", total)
@@ -1125,18 +1134,27 @@ def phase_dense_chunk_vs_plain(dr, forward_init):
                       "unassigned": int((got.p2o == 2**31 - 1).sum())})
     emit({"phase": "dense_chunk_vs_plain", "kernel": "dense_round_kernel",
           "checkpoints": "after 1, 2, 5, 64 rounds, then every 64 to done; "
-                         "single-round entries at the first four, as the "
-                         "state stands and with forced done flags and "
-                         "per-instance eps; single entry = batch at B=1",
+                         "fused_dense_round (dense_round_single) on "
+                         "instances 0 and 1 at every checkpoint against "
+                         "the plain round at B=1, as the state stands "
+                         "(Python scalars) and with forced done flags "
+                         "and per-instance eps (0-d tensors); the batch's "
+                         "single-round entry at the first four",
           "cases": cases, "tolerance": 0, "max_abs_err": worst,
           "fields": "every ForwardState field, alldone and rows; the "
                     "round's prices, p2o, o2p, chosen, maxp; bit-exact"})
     return worst
 
 
-def check_single_round(dr, vals_nm, st, name):
+def check_single_round(dr, drs, vals_nm, st, name, batch_entry):
     """The single-round entry points at state ``st`` against their plain
-    version, bit for bit; returns the largest price difference (0)."""
+    version, bit for bit; returns the largest price difference (0).
+    ``fused_dense_round`` (``csrc/dense_round_single.cu``) on instances 0
+    and 1: eps and done as the state stands, as Python scalars, and a
+    per-instance eps with forced done flags, as 0-d tensors on the card,
+    each against ``fused_dense_round_batch_reference`` at B = 1.  With
+    ``batch_entry``, also ``fused_dense_round_batch`` (the chunk kernel's
+    single-round mode) on the whole batch in both forms."""
     b = vals_nm.shape[0]
     vt = vals_nm.transpose(1, 2).contiguous()
     done2 = st.done.clone()
@@ -1145,20 +1163,28 @@ def check_single_round(dr, vals_nm, st, name):
     worst = 0.0
     for eps_b, done_b in ((st.eps, st.done), (eps2, done2)):
         args = (vt, st.prices, st.p2o, st.o2p, eps_b, done_b)
-        got = dr.fused_dense_round_batch(*args, vals_nm=vals_nm)
-        torch.cuda.synchronize()
-        want = dr.fused_dense_round_batch_reference(*args)
-        bad = round_outputs_differ(got, want)
-        assert not bad, (name, "single round", bad)
-        worst = max(worst, float((got[0].double() - want[0].double())
-                                 .abs().max()))
-    one = dr.fused_dense_round(vt[1], st.prices[1], st.p2o[1], st.o2p[1],
-                               float(st.eps[1]), bool(st.done[1]))
-    at_b1 = dr.fused_dense_round_batch(
-        vt[1:2], st.prices[1:2], st.p2o[1:2], st.o2p[1:2], st.eps[1:2],
-        st.done[1:2])
-    bad = round_outputs_differ(one, [x[0] for x in at_b1])
-    assert not bad, (name, "single entry", bad)
+        if batch_entry:
+            got = dr.fused_dense_round_batch(*args, vals_nm=vals_nm)
+            torch.cuda.synchronize()
+            want = dr.fused_dense_round_batch_reference(*args)
+            bad = round_outputs_differ(got, want)
+            assert not bad, (name, "single round", bad)
+            worst = max(worst, float((got[0].double() - want[0].double())
+                                     .abs().max()))
+        for i in range(min(b, 2)):
+            one = (vt[i], st.prices[i], st.p2o[i], st.o2p[i])
+            if eps_b is st.eps:
+                scalars = (float(eps_b[i]), bool(done_b[i]))
+            else:
+                scalars = (eps_b[i], done_b[i])
+            got = drs.fused_dense_round(*one, *scalars)
+            torch.cuda.synchronize()
+            want = drs.fused_dense_round_reference(*one, eps_b[i],
+                                                   done_b[i])
+            bad = round_outputs_differ(got, want)
+            assert not bad, (name, "fused_dense_round", i, bad)
+            worst = max(worst, float((got[0].double() - want[0].double())
+                                     .abs().max()))
     return worst
 
 
@@ -1434,8 +1460,9 @@ def phase_dense_chunk_time(dr, forward_init):
         lambda: dr.fused_dense_round_batch(*one, vals_nm=vals), reps=5)
     single_plain_ms, _ = sync_ms(
         lambda: dr.fused_dense_round_batch_reference(*one))
-    b1 = (vt[0], st.prices[0], st.p2o[0], st.o2p[0], st.eps[0], st.done[0])
-    b1_ms = event_ms(lambda: dr.fused_dense_round(*b1), reps=5)
+    b1 = (vt[:1], st.prices[:1], st.p2o[:1], st.o2p[:1], st.eps[:1],
+          st.done[:1])
+    b1_ms = event_ms(lambda: dr.fused_dense_round_batch(*b1), reps=5)
     del vt
     emit({"phase": "dense_chunk_time", "shape": [b, n, m],
           "dtype": "float32", "state": "initial, start eps = target",
@@ -1454,6 +1481,330 @@ def phase_dense_chunk_time(dr, forward_init):
             "bound_by": bound_by, "max_abs_err": err,
             "rows_bound_ms": rows_bound_ms, "first_round_ms": first_round_ms,
             "single_round_ms": single_ms}
+
+
+def old_route_fused_dense_round(dr, vals_t, prices, p2o, o2p, eps, done,
+                                vals_nm=None):
+    """``fused_dense_round`` as the port ran it before
+    ``csrc/dense_round_single.cu``, the comparison's old side: the batch
+    entry at B = 1 (the chunk kernel's single-round mode, one CTA, on a
+    transposed copy of the plane), with eps and done copied to the
+    card.  ``vals_nm``, the plane's transpose ``[1, N, M]`` made
+    contiguous beforehand, leaves the copy out, to time the kernel
+    alone."""
+    dev = vals_t.device
+    out = dr.fused_dense_round_batch(
+        vals_t[None], prices[None], p2o[None], o2p[None],
+        torch.as_tensor(eps, dtype=vals_t.dtype, device=dev).reshape(1),
+        torch.as_tensor(done, dtype=torch.bool, device=dev).reshape(1),
+        vals_nm=vals_nm,
+    )
+    return tuple(x[0] for x in out)
+
+
+#: a wait queued on the card before a timed launch (about 0.5 ms), so
+#: that the start event and the launch are both queued before the card
+#: reaches them and the events time the device alone, not the host's
+#: enqueueing
+QUEUE_CYCLES = 1_000_000
+
+
+def queued_ms(fn, reps=5):
+    """Median device time (ms) of the launches of ``fn()``, timed by
+    CUDA events behind a queued wait."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(QUEUE_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def launch_ms(mod, fn, reps=5):
+    """Median device time (ms) of the kernel launches alone inside one
+    ``fn()``: CUDA events around every call of ``mod._launch``, each
+    behind a queued wait."""
+    real = mod._launch
+    per_call = []
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_CYCLES)
+        start.record()
+        real(*args, **kwargs)
+        end.record()
+        per_call[-1].append((start, end))
+
+    mod._launch = timed
+    try:
+        for _ in range(reps):
+            per_call.append([])
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        mod._launch = real
+    return statistics.median(sum(s.elapsed_time(e) for s, e in evs)
+                             for evs in per_call)
+
+
+#: torch.profiler captures device_ops takes at most for one count
+PROFILE_TRIES = 3
+
+
+def device_ops(fn):
+    """The device work one ``fn()`` issues, from ``torch.profiler``:
+    kernels by name, memcpys and memsets (after one warm call), and the
+    captures it took.  A capture holding no CUDA event at all saw no
+    device (on an H100 the first capture of a long process has come back
+    so) and is taken again, up to ``PROFILE_TRIES`` times; the caller
+    decides whether an empty count is a failure."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for capture in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels, copies, sets = {}, 0, 0
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            low = e.name.lower()
+            if "memcpy" in low:
+                copies += 1
+            elif "memset" in low:
+                sets += 1
+            else:
+                kernels[e.name] = kernels.get(e.name, 0) + 1
+        if kernels or copies or sets:
+            break
+    return {"kernels": kernels, "memcpy": copies, "memset": sets,
+            "captures": capture}
+
+
+#: the shipped instance of the single round's kernel (all three phases),
+#: as torch.profiler names it
+COOP_KERNEL = re.compile(r"dense_round_single_coop<(\(int\))?7>")
+#: dense_round_single_time's shapes, (objects M, persons N) of vals_t,
+#: and the eps of its rounds
+SINGLE_SHAPES = ((256, 256), (512, 256), (4096, 4096))
+SINGLE_EPS = 999.0 / 128.0
+#: (objects, persons) off every tile and slice edge, checked bit-equal
+ODD_SHAPES = ((1, 1), (3, 5), (7, 70), (70, 7), (513, 257), (1000, 33))
+#: timings of a whole call (host work included, so noisier than a
+#: kernel's) take the median of this many
+CALL_REPS = 21
+
+
+def single_round_states(drs, m, n):
+    """``vals_t [m, n]`` (integer costs in [1, 1000) negated, made on the
+    card from the seed) and two states ``(prices, p2o, o2p, plain
+    rounds run)``: "opening", everyone unassigned at zero prices, and
+    "late", after the plain rounds at ``SINGLE_EPS`` leave at most 8
+    persons unassigned."""
+    unassigned = 2**31 - 1
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11 * m + n)
+    vt = -torch.randint(1, 1000, (m, n), generator=gen, device="cuda",
+                        dtype=torch.int32).float()
+    opening = (torch.zeros(m, device="cuda"),
+               torch.full((n,), unassigned, dtype=torch.int32,
+                          device="cuda"),
+               torch.full((m,), unassigned, dtype=torch.int32,
+                          device="cuda"))
+    st, rounds = opening, 0
+    while int((st[1] == unassigned).sum()) > 8:
+        st = drs.fused_dense_round_reference(vt, *st, SINGLE_EPS,
+                                             False)[:3]
+        rounds += 1
+    return vt, {"opening": (*opening, 0), "late": (*st, rounds)}
+
+
+def phase_dense_round_single_time(dr, drs, fr_big):
+    """``fused_dense_round`` (``csrc/dense_round_single.cu``) at 256²,
+    512 objects x 256 persons and 4096² in the two states of
+    :func:`single_round_states`.  Each: bit-equal to the plain version;
+    the call's ms (CUDA events around the call, median of ``CALL_REPS``)
+    and the kernel's (events around the launch alone, median of 5); the
+    plain version's ms; the old route (:func:`old_route_fused_dense_round`,
+    bit-equal) beside it: its call, its kernel on a plane transposed
+    beforehand, and that transpose copy alone; the bound (the plane and
+    the state each read once, the outputs written once, at 3.35 TB/s;
+    three operations an element walked at 67 TFLOP/s) beside the
+    design's bytes (the bidder tiles' columns for the bids and the plane
+    again for the margins) and a latency floor (the skeleton instance,
+    every phase empty, plus two dependent slice walks of measured HBM
+    load latency); the device time split by phase (the instances running
+    the first 0, 1, 2 and 3 phases); the kernels and memcpys of one call
+    (``torch.profiler``: exactly one launch of the shipped instance, no
+    memcpy, no memset)."""
+    links = 1 << 28  # a dependent load that misses L2 (1 GiB chain)
+    chain = torch.remainder(
+        torch.arange(links, dtype=torch.int32, device="cuda") + 4_194_319,
+        links).to(torch.int32)
+    load_ns = fr_big.probe(chain, 2000)["hbm_load_ns"]
+    del chain
+    unassigned = 2**31 - 1
+    eps = SINGLE_EPS
+    out, worst = [], 0.0
+    for m, n in SINGLE_SHAPES:
+        vt, states = single_round_states(drs, m, n)
+        pl = drs.plan(m, n)
+        for state, (prices, p2o, o2p, r) in states.items():
+            args = (vt, prices, p2o, o2p, eps, False)
+            got = drs.fused_dense_round(*args)
+            torch.cuda.synchronize()
+            plain_ms, want = sync_ms(
+                lambda: drs.fused_dense_round_reference(*args), reps=3)
+            bad = round_outputs_differ(got, want)
+            assert not bad, ("dense_round_single", m, n, state, bad)
+            old = old_route_fused_dense_round(dr, *args)
+            bad = round_outputs_differ(old, want)
+            assert not bad, ("old route", m, n, state, bad)
+            worst = max(worst, float((got[0].double() - want[0].double())
+                                     .abs().max()))
+            call_ms = event_ms(lambda: drs.fused_dense_round(*args),
+                               reps=CALL_REPS)
+            kernel_ms = launch_ms(drs, lambda: drs.fused_dense_round(*args))
+            ops = device_ops(lambda: drs.fused_dense_round(*args))
+            names = list(ops["kernels"])
+            assert (len(names) == 1 and COOP_KERNEL.search(names[0])
+                    and ops["kernels"][names[0]] == 1
+                    and ops["memcpy"] == 0 and ops["memset"] == 0), (
+                "one call is not one launch of the round's kernel "
+                "(no CUDA events means the profiler saw no device)", ops)
+            # the old route: its call; its kernel on a plane transposed
+            # beforehand (so _launch's .contiguous() copies nothing); the
+            # transpose copy the call makes, alone
+            vnm = vt.t().contiguous()[None]
+            old_ms = {
+                "call_ms": event_ms(
+                    lambda: old_route_fused_dense_round(dr, *args),
+                    reps=CALL_REPS),
+                "kernel_ms": launch_ms(
+                    dr, lambda: old_route_fused_dense_round(
+                        dr, *args, vals_nm=vnm)),
+                "copy_ms": queued_ms(
+                    lambda: vt[None].transpose(1, 2).contiguous()),
+                "ops": device_ops(
+                    lambda: old_route_fused_dense_round(dr, *args))}
+            bad = round_outputs_differ(
+                old_route_fused_dense_round(dr, *args, vals_nm=vnm), want)
+            assert not bad, ("old route, plane given", m, n, state, bad)
+            del vnm
+            # the bound: the plane read once, the state read (prices,
+            # p2o, o2p) and written (the five outputs) once; operations: a
+            # subtract and two compares an element the design walks (the
+            # 32-person tiles holding a bidder over all M objects for the
+            # bids, the plane again for the margins)
+            bidders = p2o == unassigned
+            tiles = int(torch.nn.functional.pad(
+                bidders, (0, 32 * pl.tiles - n)).view(pl.tiles, 32)
+                .any(dim=1).sum())
+            bid_cols = min(32 * tiles, n)
+            elems = (bid_cols + n) * m
+            state_bytes = 4 * (2 * m + n) + 4 * (2 * m + 3 * n)
+            nbytes = 4 * m * n + state_bytes
+            bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ops_ms = 3 * elems / F32_OPS_PER_S * 1e3
+            bound_ms = max(bound_bytes_ms, bound_ops_ms)
+            bound_by = ("bytes" if bound_bytes_ms >= bound_ops_ms
+                        else "operations")
+            # the design's bytes: both walks, not a bound of the function
+            design_bytes_ms = ((4 * elems + state_bytes)
+                               / HBM_BYTES_PER_S * 1e3)
+            # device time of parts of the round (the instances running no
+            # phase, the launch and barriers alone, then phase 1, 1-2, 1-3)
+            outs = [torch.empty(k, dtype=d, device="cuda")
+                    for k, d in ((m, torch.float32), (n, torch.int32),
+                                 (m, torch.int32), (n, torch.float32),
+                                 (n, torch.float32))]
+            scratch = torch.empty(pl.scratch_bytes, dtype=torch.uint8,
+                                  device="cuda")
+            parts = {}
+            for mask in (0, 1, 3, 7):
+                parts[f"phases_{mask}"] = queued_ms(
+                    lambda mask=mask: drs._launch(
+                        vt, prices, p2o, o2p, eps, None, 0, None,
+                        [t.data_ptr() for t in outs], scratch.data_ptr(),
+                        pl, phases=mask))
+            # the last launches were the whole round
+            bad = round_outputs_differ(outs, want)
+            assert not bad, ("dense_round_single by _launch", m, n, state,
+                             bad)
+            del outs, scratch
+            split = {"launch_and_barriers": parts["phases_0"],
+                     "phase1_bid_walk": parts["phases_1"]
+                     - parts["phases_0"],
+                     "phase2_merge_and_bid": parts["phases_3"]
+                     - parts["phases_1"],
+                     "phase3_margins": parts["phases_7"]
+                     - parts["phases_3"]}
+            walks_ms = 2 * pl.walk_steps * load_ns / 1e6
+            floor_ms = parts["phases_0"] + walks_ms
+            out.append({
+                "m_objects": m, "n_persons": n, "state": state,
+                "plain_rounds_before": r,
+                "unassigned": int(bidders.sum()), "bidder_tiles": tiles,
+                "plan": pl._asdict(), "bit_equal": True,
+                "call_ms": call_ms, "kernel_ms": kernel_ms,
+                "kernel_ms_queued": parts["phases_7"],
+                "plain_ms": plain_ms, "old_route_call_ms": old_ms["call_ms"],
+                "old_route_kernel_ms": old_ms["kernel_ms"],
+                "old_route_copy_ms": old_ms["copy_ms"],
+                "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_ops_ms": bound_ops_ms,
+                "design_bytes_ms": design_bytes_ms,
+                "skeleton_ms": parts["phases_0"],
+                "split_ms": split, "phase_instance_ms": parts,
+                "latency_floor_ms": floor_ms, "ops_per_call": ops,
+                "old_route_ops_per_call": old_ms["ops"]})
+        del vt, states
+    # shapes off every tile and slice edge, 12 rounds each from the
+    # opening, bit-equal
+    odd = []
+    for m, n in ODD_SHAPES:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + m * 7 + n)
+        vt = -torch.randint(1, 1000, (m, n), generator=gen, device="cuda",
+                            dtype=torch.int32).float()
+        st = (torch.zeros(m, device="cuda"),
+              torch.full((n,), unassigned, dtype=torch.int32,
+                         device="cuda"),
+              torch.full((m,), unassigned, dtype=torch.int32,
+                         device="cuda"))
+        for r in range(12):
+            got = drs.fused_dense_round(vt, *st, eps, False)
+            want = drs.fused_dense_round_reference(vt, *st, eps, False)
+            bad = round_outputs_differ(got, want)
+            assert not bad, ("dense_round_single", m, n, r, bad)
+            st = want[:3]
+        odd.append([m, n])
+    emit({"phase": "dense_round_single_time",
+          "kernel": "dense_round_single", "eps": eps,
+          "costs": "integers in [1, 1000) negated, float32, on the card",
+          "hbm_load_ns": load_ns,
+          "latency_floor": "the cooperative skeleton (launch and two grid "
+                           "barriers) + 2 x walk_steps dependent HBM loads",
+          "cases": out, "odd_shapes_12_rounds_bit_equal": odd,
+          "max_abs_err": worst})
+    main = next(c for c in out if (c["m_objects"], c["n_persons"],
+                                   c["state"]) == (512, 256, "opening"))
+    return {"ms": main["call_ms"], "kernel_ms": main["kernel_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "design_bytes_ms": main["design_bytes_ms"],
+            "latency_floor_ms": main["latency_floor_ms"],
+            "max_abs_err": worst}
 
 
 # ----------------------------------------------------------------------
@@ -2180,7 +2531,6 @@ def phase_kernel_trace(port, batch, fr_kernel, fr_big, ksp, fr_init,
     slowest north-star instance's rounds and flips, the big singles'
     rounds per flip."""
     import io
-    import re
 
     from sparse_linear_assignment_tpu_torch.ops import round_log
     from sparse_linear_assignment_tpu_torch.utils import trace
@@ -2397,6 +2747,9 @@ def main() -> int:
         fr_kernel,
     )
     from sparse_linear_assignment_tpu_torch.ops import dense_round as dr
+    from sparse_linear_assignment_tpu_torch.ops import (
+        dense_round_single as drs,
+    )
     from sparse_linear_assignment_tpu_torch.ops import ksparse_kernel as ksp
     from sparse_linear_assignment_tpu_torch.ops.auction import forward_init
     from sparse_linear_assignment_tpu_torch.ops.fr_dense import fr_init
@@ -2410,6 +2763,7 @@ def main() -> int:
     fr_big._kernel_lib()
     ksp._kernel_lib()
     dr._kernel_lib()
+    drs._kernel_lib()
     build_s = time.perf_counter() - t0
     # the native engine is built here too (g++, first use), so that no
     # timed phase below pays for its build
@@ -2429,7 +2783,7 @@ def main() -> int:
     max_err = phase_kernel_vs_plain(fr_kernel, fr_init)
     big_plain = phase_big_kernel_vs_plain(batch, fr_big, fr_init)
     phase_ksp_kernel_vs_plain(port, batch, ksp)
-    dr_err = phase_dense_chunk_vs_plain(dr, forward_init)
+    dr_err = phase_dense_chunk_vs_plain(dr, drs, forward_init)
 
     # 3. the north-star solve through the public entry point
     b, n, max_cost = 4096, 256, 1000
@@ -2443,8 +2797,10 @@ def main() -> int:
                                 max_cost=max_cost)
 
     fr_kernel.LAUNCHES = 0
+    drs.LAUNCHES = 0
     first_ms, sol = sync_ms(solve)
     launches = fr_kernel.LAUNCHES
+    single_launches = drs.LAUNCHES
     assert launches > 0, "the main path launched no FR kernel"
     torch.cuda.reset_peak_memory_stats()
     warm_ms, sol2 = sync_ms(solve, reps=3)
@@ -2532,6 +2888,10 @@ def main() -> int:
           "plain_bit_exact": True})
     del vt, work, s0, got, want
 
+    # 4b. the single-instance dense round (no path calls it): its time,
+    # plain time, bound and latency floor, beside its old route
+    drst = phase_dense_round_single_time(dr, drs, fr_big)
+
     # 5. the float path at the slice's largest size (host costs)
     fb, fn = 64, 1024
     rng = np.random.default_rng(SEED)
@@ -2606,8 +2966,8 @@ def main() -> int:
 
     # 11. the reference-crate API and the single sparse device engines:
     # no kernel of the port on this path (the JAX package runs it as
-    # plain XLA); every phase reads the four kernels' counts (0)
-    mods = (fr_kernel, fr_big, ksp, dr)
+    # plain XLA); every phase reads the five kernels' counts (0)
+    mods = (fr_kernel, fr_big, ksp, dr, drs)
     phase_reference_api(port, mods, card)
     phase_khosla_headline(port, mods, card)
     phase_khosla_asym(port, mods, card)
@@ -2675,9 +3035,7 @@ def main() -> int:
         "route": "cuda",
         "source":
             "sparse_linear_assignment_tpu_torch/csrc/dense_round_kernel.cu",
-        "replaces": "sparse_linear_assignment_tpu/ops/pallas_dense.py:191 "
-                    "and sparse_linear_assignment_tpu/ops/pallas_dense.py"
-                    ":247",
+        "replaces": "sparse_linear_assignment_tpu/ops/pallas_dense.py:191",
         "launches": dr_launches,
         "max_abs_err": max(dr_err, drt["max_abs_err"]),
         "checked_vs_plain": True,
@@ -2685,6 +3043,23 @@ def main() -> int:
         "plain_ms": drt["plain_ms"],
         "bound_ms": drt["bound_ms"],
         "bound_by": drt["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "dense_round_single",
+        "route": "cuda",
+        "source":
+            "sparse_linear_assignment_tpu_torch/csrc/dense_round_single.cu",
+        "replaces": "sparse_linear_assignment_tpu/ops/pallas_dense.py:247",
+        "launches": single_launches,
+        "max_abs_err": max(dr_err, drst["max_abs_err"]),
+        "checked_vs_plain": True,
+        "ms": drst["ms"],
+        "kernel_ms": drst["kernel_ms"],
+        "plain_ms": drst["plain_ms"],
+        "bound_ms": drst["bound_ms"],
+        "bound_by": drst["bound_by"],
+        "design_bytes_ms": drst["design_bytes_ms"],
+        "latency_floor_ms": drst["latency_floor_ms"],
         "library_ms": None,
     }]})
     emit({"ok": True, "device": {

@@ -1,19 +1,21 @@
-"""Forward-auction rounds on the card (``csrc/dense_round_kernel.cu``):
-a whole chunk of rounds with the eps-scaling bookkeeping in one launch,
-or one fused round with its eps-CS margins.
+"""Forward-auction rounds of a batch on the card
+(``csrc/dense_round_kernel.cu``): a whole chunk of rounds with the
+eps-scaling bookkeeping in one launch, or one fused round with its
+eps-CS margins.
 
-Replaces the JAX package's two Pallas TPU kernels of
-``ops/pallas_dense.py``: ``_batch_round_kernel`` (driven by
-``fused_dense_round_batch_flat`` and ``fused_dense_round_batch``, a grid
-over the batch) and ``_round_kernel`` (``fused_dense_round``, one
-instance), both bodies of ``_round_math``, together with the XLA
-bookkeeping that ``batch.py:_batch_chunk_pallas`` runs around each
-round.  :func:`fused_dense_chunk` runs up to ``chunk`` rounds of every
-instance in one launch, each instance leaving the loop once it is done,
-and returns the ``ForwardState`` that ``chunk`` rounds of
+Replaces the JAX package's Pallas TPU kernel ``_batch_round_kernel`` of
+``ops/pallas_dense.py`` (driven by ``fused_dense_round_batch_flat`` and
+``fused_dense_round_batch``, a grid over the batch), a body of
+``_round_math``, together with the XLA bookkeeping that
+``batch.py:_batch_chunk_pallas`` runs around each round.
+:func:`fused_dense_chunk` runs up to ``chunk`` rounds of every instance
+in one launch, each instance leaving the loop once it is done, and
+returns the ``ForwardState`` that ``chunk`` rounds of
 :func:`dense_chunk_reference` return, bit for bit.
-:func:`fused_dense_round_batch` and :func:`fused_dense_round` (the same
-at ``B = 1``) run one round of the same kernel and return its margins.
+:func:`fused_dense_round_batch` runs one round of the same kernel at
+any ``B`` and returns its margins.  The single-instance round of the
+same module in JAX (``_round_kernel``, ``fused_dense_round``) has a
+kernel of its own: ``ops/dense_round_single.py``.
 
 What bounds it on an H100.  A round reads the rows of its bidders (the
 unassigned persons) and, in a round where an instance has just become
@@ -222,20 +224,6 @@ def fused_dense_round_batch(vals_b, prices_b, p2o_b, o2p_b, eps_b, done_b,
     _launch(vals_nm, prices, p2o, o2p, eps, None, None, None, done,
             chosen, maxp, None, 0.0, 0.0, 0, 1, 0)
     return prices, p2o, o2p, chosen, maxp
-
-
-def fused_dense_round(vals_t, prices, p2o, o2p, eps, done):
-    """One fused forward-auction round of a single dense instance:
-    ``vals_t [M, N]``, ``prices [M]``, ``p2o [N]``, ``o2p [M]``, ``eps``
-    a scalar, ``done`` a bool.  The batch entry point at ``B = 1``.
-    Returns ``(prices', p2o', o2p', chosen_profit, max_profit)``."""
-    dev = vals_t.device
-    out = fused_dense_round_batch(
-        vals_t[None], prices[None], p2o[None], o2p[None],
-        torch.as_tensor(eps, dtype=vals_t.dtype, device=dev).reshape(1),
-        torch.as_tensor(done, dtype=torch.bool, device=dev).reshape(1),
-    )
-    return tuple(x[0] for x in out)
 
 
 def _check_chunk(vals_nm, states: ForwardState, rows) -> None:

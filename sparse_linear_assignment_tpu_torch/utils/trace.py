@@ -53,16 +53,23 @@ def trace_kernel_round(fmt: str, *args) -> None:
         print(fmt.format(*args), file=sys.stderr, flush=True)
 
 
+#: the Chrome trace's file name inside ``profile_solve``'s ``log_dir``
+TRACE_FILE = "slap_torch_trace.json"
+
+
 @contextlib.contextmanager
-def profile_solve(trace_path: str = "slap_torch_trace.json") -> Iterator:
+def profile_solve(log_dir: str = "/tmp/slap_tpu_profile") -> Iterator:
     """Profile a solve with ``torch.profiler`` (CPU and, where present,
-    CUDA activity) and write a Chrome trace to ``trace_path``:
+    CUDA activity) and write a Chrome trace into the directory
+    ``log_dir`` (created if missing) as :data:`TRACE_FILE`; the JAX
+    package's keyword and default.  Yields the profiler:
     ``with profile_solve() as prof: solve_batch(...)``."""
     import torch
 
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(trace_path)
+    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))

@@ -114,10 +114,29 @@ def test_trace_and_profile(tmp_path, capsys):
     err = capsys.readouterr().err
     assert "integer-auction mode, scale=129" in err
     assert "fr fused: rounds=" in err
-    out = tmp_path / "trace.json"
+    out = tmp_path / "trace"
     with trace.profile_solve(str(out)):
         port.solve_batch(_costs(51, True)[:1], device="cpu")
-    assert out.stat().st_size > 0
+    assert (out / trace.TRACE_FILE).stat().st_size > 0
+
+
+def test_profile_solve_takes_jaxs_keyword(tmp_path):
+    """``profile_solve(log_dir=...)`` as in the JAX package: the
+    directory is made and holds a non-empty Chrome trace."""
+    import inspect
+
+    from sparse_linear_assignment_tpu.utils import trace as jtrace
+    from sparse_linear_assignment_tpu_torch.utils import trace
+
+    want = inspect.signature(jtrace.profile_solve).parameters["log_dir"]
+    got = inspect.signature(trace.profile_solve).parameters["log_dir"]
+    assert got.default == want.default
+    prof_dir = tmp_path / "prof"
+    with trace.profile_solve(log_dir=str(prof_dir)) as prof:
+        port.solve_batch(_costs(52, True)[:1], device="cpu")
+    assert prof is not None
+    traces = sorted(prof_dir.glob("*.json"))
+    assert traces and all(p.stat().st_size > 0 for p in traces)
 
 
 def test_device_resident_int_lattice_matches_jax(jax_results):

@@ -1,7 +1,8 @@
 """The forward round's and the forward chunk's plain versions
 (``ops/dense_round.py``) against the JAX package's Pallas kernels in
 interpret mode (``ops/pallas_dense.py``: ``fused_dense_round_batch`` and
-``fused_dense_round``; ``batch._batch_chunk_pallas``, the Pallas round
+``fused_dense_round``, whose port is ``ops/dense_round_single.py``;
+``batch._batch_chunk_pallas``, the Pallas round
 with its XLA eps-scaling bookkeeping) and against the port's own plain
 rounds.
 
@@ -23,6 +24,7 @@ from sparse_linear_assignment_tpu import batch as jbatch
 from sparse_linear_assignment_tpu.ops import pallas_dense as jdense
 from sparse_linear_assignment_tpu.ops.auction import ForwardState as JState
 from sparse_linear_assignment_tpu_torch.ops import dense_round as dr
+from sparse_linear_assignment_tpu_torch.ops import dense_round_single as drs
 from sparse_linear_assignment_tpu_torch.ops.auction import (
     _price_at_best,
     _resolve_and_assign_dense,
@@ -109,8 +111,8 @@ def test_plain_round_matches_pallas_on_a_plane_with_single_arcs():
 
 def test_single_entry_matches_pallas_single_and_batch_at_b1():
     vals, st = make_state(17, 1, 128, 128, 3)
-    single = dr.fused_dense_round(vals[0], st.prices[0], st.p2o[0],
-                                  st.o2p[0], float(st.eps[0]), False)
+    single = drs.fused_dense_round(vals[0], st.prices[0], st.p2o[0],
+                                   st.o2p[0], float(st.eps[0]), False)
     batched = dr.fused_dense_round_batch(vals, st.prices, st.p2o, st.o2p,
                                          st.eps, st.done)
     assert_outputs_equal(single, [x[0].numpy() for x in batched])
@@ -122,10 +124,106 @@ def test_single_entry_matches_pallas_single_and_batch_at_b1():
     assert_outputs_equal(single, [np.asarray(x) for x in want])
     # a round from a fresh state assigns someone and raises a price
     vals, st = make_state(17, 1, 128, 128, 0)
-    prices, p2o, _, _, _ = dr.fused_dense_round(
+    prices, p2o, _, _, _ = drs.fused_dense_round(
         vals[0], st.prices[0], st.p2o[0], st.o2p[0], float(st.eps[0]),
         False)
     assert int((p2o != UNASSIGNED).sum()) > 0 and float(prices.max()) > 0
+
+
+# the single-instance round (``ops/dense_round_single.py``) against
+# JAX's ``fused_dense_round(interpret=True)``
+SINGLE_CASES = {
+    "fresh": dict(n=128, m=128, rounds=0),
+    "after-3-rounds": dict(n=128, m=128, rounds=3),
+    "after-9-rounds": dict(n=128, m=128, rounds=9),
+    "inf-plane-single-arc-persons": dict(n=128, m=256, rounds=2,
+                                         sparse=True),
+    "done": dict(n=128, m=128, rounds=3, done=True),
+    "eps-0d-tensor": dict(n=128, m=128, rounds=3, eps_tensor=True),
+    "n-below-m-128x256": dict(n=128, m=256, rounds=3),
+    "off-tile-24x40": dict(n=24, m=40, rounds=2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SINGLE_CASES))
+def test_single_round_matches_pallas_single(case):
+    """``fused_dense_round`` bit-equal to JAX's ``fused_dense_round(...,
+    interpret=True)``: eps a Python float, or a 0-d tensor (which must
+    give the float's answer), done a bool."""
+    kw = SINGLE_CASES[case]
+    vals, st = make_state(sorted(SINGLE_CASES).index(case) + 60, 1,
+                          kw["n"], kw["m"], kw["rounds"],
+                          sparse=kw.get("sparse", False))
+    done = kw.get("done", False)
+    eps = float(st.eps[0])
+    args = (vals[0], st.prices[0], st.p2o[0], st.o2p[0])
+    got = drs.fused_dense_round(*args, eps, done)
+    if kw.get("eps_tensor"):
+        as_tensor = drs.fused_dense_round(*args, st.eps[0].clone(),
+                                          torch.tensor(done))
+        assert_outputs_equal(as_tensor, [x.numpy() for x in got],
+                             "eps and done as 0-d tensors")
+        got = as_tensor
+    want = jdense.fused_dense_round(
+        *(jnp.asarray(x.numpy()) for x in args), np.float32(eps), done,
+        interpret=True)
+    assert_outputs_equal(got, [np.asarray(x) for x in want], case)
+    unassigned = int((st.p2o[0] == UNASSIGNED).sum())
+    if done or not unassigned:  # nobody bids: the state stands
+        assert torch.equal(got[0], st.prices[0])
+        assert torch.equal(got[1], st.p2o[0])
+    else:
+        assert bool((got[0] >= st.prices[0]).all())
+        assert bool((got[0] > st.prices[0]).any()), "no bid was placed"
+    assert dr.LAUNCHES == 0 and drs.LAUNCHES == 0  # CPU tensors
+
+
+def test_single_round_plan():
+    """The launch planner (pure Python): 32-person tiles, object slices
+    of 8 to 512 objects as narrow as gives 128 items, the scratch
+    arrays' offsets (16-byte aligned, in order, none overlapping)."""
+    p = drs.plan(256, 256)
+    assert (p.tiles, p.width, p.slices, p.items) == (8, 16, 16, 128)
+    p = drs.plan(512, 256)       # 512 objects x 256 persons
+    assert (p.tiles, p.width, p.slices, p.items) == (8, 32, 16, 128)
+    p = drs.plan(4096, 4096)
+    assert (p.tiles, p.width, p.slices, p.items) == (128, 512, 8, 1024)
+    assert p.walk_steps == 8     # 512 rows / (8 warps x 8 in flight)
+    p = drs.plan(40, 24)
+    assert (p.tiles, p.width, p.slices, p.items) == (1, 8, 5, 5)
+    p = drs.plan(40_000, 100)    # the last slice is shorter
+    assert p.width == drs.MAX_SLICE and p.slices == 79
+    for m, n in ((256, 256), (512, 256), (4096, 4096), (40, 24), (1, 1),
+                 (257, 33), (100_000, 100_000)):
+        p = drs.plan(m, n)
+        assert p.width % drs.WARPS == 0 and p.width <= drs.MAX_SLICE
+        assert p.slices * p.width >= m > (p.slices - 1) * p.width
+        assert 32 * p.tiles >= n > 32 * (p.tiles - 1)
+        sizes = (16 * n * p.slices, 8 * m, 4 * n)
+        ends = [o + size for o, size in zip(p.offsets, sizes)]
+        assert all(o % 16 == 0 for o in p.offsets)
+        assert all(e <= o for e, o in zip(ends, p.offsets[1:]))
+        assert ends[-1] <= p.scratch_bytes < ends[-1] + 16
+    with pytest.raises(ValueError, match="empty instance"):
+        drs.plan(0, 4)
+
+
+def test_single_round_wrapper_checks():
+    """Off the CPU the wrapper launches or raises; it checks the
+    device and the shapes first.  The plain version takes any float
+    dtype."""
+    vals, st = make_state(33, 1, 8, 16, 0)
+    args = (vals[0], st.prices[0], st.p2o[0], st.o2p[0], 0.5, False)
+    meta = [x.to("meta") if isinstance(x, torch.Tensor) else x
+            for x in args]
+    with pytest.raises(ValueError, match="runs on cpu or cuda, not meta"):
+        drs.fused_dense_round(*meta)
+    got = drs.fused_dense_round(vals[0].double(), st.prices[0].double(),
+                                *args[2:])
+    want = drs.fused_dense_round(*args)
+    assert got[0].dtype == torch.float64
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert drs.LAUNCHES == 0
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])

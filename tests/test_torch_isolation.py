@@ -30,6 +30,8 @@ def test_import_loads_no_jax():
         "import sparse_linear_assignment_tpu_torch.ops.auction\n"
         "import sparse_linear_assignment_tpu_torch.ops.ksparse_kernel\n"
         "import sparse_linear_assignment_tpu_torch.ops.round_log\n"
+        "import sparse_linear_assignment_tpu_torch.ops.dense_round\n"
+        "import sparse_linear_assignment_tpu_torch.ops.dense_round_single\n"
         "import sparse_linear_assignment_tpu_torch.generators\n"
         "import sparse_linear_assignment_tpu_torch.cpu_reference\n"
         "import sparse_linear_assignment_tpu_torch.utils.trace\n"
@@ -64,7 +66,8 @@ def test_sources_import_no_jax():
     names = {p.relative_to(PKG).as_posix() for p in files}
     assert {"solver.py", "ksparse.py", "symmetric.py", "hybrid.py",
             "ops/padded.py", "ops/compact.py", "ops/prefix.py",
-            "utils/compaction.py", "ops/round_log.py", "parallel/__init__.py",
+            "utils/compaction.py", "ops/round_log.py",
+            "ops/dense_round_single.py", "parallel/__init__.py",
             "parallel/sharded.py", "parallel/collectives.py",
             "parallel/dryrun.py"} <= names
     offenders = []
@@ -93,3 +96,26 @@ def test_chip_smoke_imports_no_jax():
     assert not [n for n in names if _forbidden(n)]
     assert any(n.startswith("sparse_linear_assignment_tpu_torch")
                for n in names)
+
+
+def test_kernel_sources_stand_alone():
+    """Every ``csrc/*.cu`` (``dense_round_single.cu`` among them) is a
+    source the build picks up, and includes only the CUDA toolkit's
+    headers, the C library's and the package's own ``csrc/`` headers."""
+    from sparse_linear_assignment_tpu_torch.ops import _build
+
+    csrc = PKG / "csrc"
+    sources = sorted(p.stem for p in csrc.glob("*.cu"))
+    assert "dense_round_single" in sources
+    assert _build.sources() == sources
+    toolkit = {"cuda_runtime.h", "cooperative_groups.h", "stdint.h",
+               "string.h"}
+    for cu in sorted(csrc.glob("*.cu")):
+        for line in cu.read_text().splitlines():
+            if not line.startswith("#include"):
+                continue
+            name = line.split()[1]
+            if name.startswith('"'):
+                assert (csrc / name.strip('"')).is_file(), (cu.name, name)
+            else:
+                assert name.strip("<>") in toolkit, (cu.name, name)

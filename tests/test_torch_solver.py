@@ -379,6 +379,36 @@ def test_solver_reuse_and_maximize_reflip(cls):
     assert results[1] == results[3] == 13.0 + 8.0 + 8.0
 
 
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("cls", SOLVERS)
+def test_negative_values_reference_quirk(cls, engine):
+    """``test_options.py::test_negative_values_reference_quirk`` on the
+    port: all-negative values meet the reference's ``values[0]`` sign
+    heuristic (``solver.rs:111-115``, ``:214-216``), so ``maximize``
+    picks the |cost|-largest matching and reports +12, ``minimize`` the
+    |cost|-smallest and reports +5; and the JAX package's solver gives
+    the same answers on the same input and engine."""
+    costs = [[-5.0, -2.0], [-3.0, -7.0]]
+    jax_solver, jax_solution = getattr(jpkg, cls).new(2, 2, 4)
+    solver, solution = port(cls).new(2, 2, 4)
+    for maximize, objective, matching in ((True, 12.0, [0, 1]),
+                                          (False, 5.0, [1, 0])):
+        for s in (solver, jax_solver):
+            s.init(2, 2)
+            for i, row in enumerate(costs):
+                s.extend_from_values(i, [0, 1], row)
+        solve(solver, solution, maximize, engine=engine)
+        jax_solver.solve(jax_solution, maximize=maximize, engine=engine)
+        assert solver.get_objective(solution) == objective
+        assert list(solution.person_to_object) == matching
+        assert (solver.get_objective(solution)
+                == jax_solver.get_objective(jax_solution))
+        np.testing.assert_array_equal(solution.person_to_object,
+                                      jax_solution.person_to_object)
+        np.testing.assert_array_equal(solution.object_to_person,
+                                      jax_solution.object_to_person)
+
+
 def test_solution_new_and_index_conventions():
     sol = tpkg.AuctionSolution.new(4, 4)
     jsol = jpkg.AuctionSolution.new(4, 4)

@@ -15,7 +15,10 @@ constant-bank offset (a kernel argument's place) written as one symbol:
 two kernels with the same hash run the same instructions, whatever
 arguments were added around the ones they read.  Give an older
 checkout's ``csrc/`` beside this one to compare two versions of the
-kernels built by the same compiler.
+kernels built by the same compiler; a last line for each older
+directory then lists the kernels whose machine code equals this
+checkout's, those whose code differs, and the sources only this
+checkout has.
 """
 
 from __future__ import annotations
@@ -89,10 +92,37 @@ def main(argv) -> int:
             out_dir = Path(tmp) / str(i)
             out_dir.mkdir()
             started.append((csrc, start(csrc, out_dir)))
+        tables = []
         for csrc, jobs in started:
-            print(json.dumps({"csrc": str(csrc),
-                              "kernels": finish(csrc, jobs)}), flush=True)
+            tables.append(finish(csrc, jobs))
+            print(json.dumps({"csrc": str(csrc), "kernels": tables[-1]}),
+                  flush=True)
+    for csrc, table in zip(dirs[1:], tables[1:]):
+        print(json.dumps({"compare": [str(dirs[0]), str(csrc)],
+                          **sass_compare(tables[0], table)}), flush=True)
     return 0
+
+
+def sass_compare(first: dict, other: dict) -> dict:
+    """Which kernels of ``other`` run the same machine code as in
+    ``first`` (by ``sass`` hash), which differ, and which sources only
+    ``first`` has."""
+    def plain(kernels):
+        # an anonymous namespace's mangled name holds a hash of the
+        # source's path: the same kernel built from two directories
+        return {re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", k): v
+                for k, v in kernels.items()}
+
+    same, differ = [], []
+    for source, kernels in other.items():
+        mine_all = plain(first.get(source, {}))
+        for kernel, row in plain(kernels).items():
+            mine = mine_all.get(kernel)
+            if mine is not None:
+                (same if mine.get("sass") == row.get("sass")
+                 else differ).append(f"{source}:{kernel}")
+    return {"same_sass": same, "different_sass": differ,
+            "sources_only_in_first": sorted(set(first) - set(other))}
 
 
 if __name__ == "__main__":
