@@ -65,7 +65,13 @@ drives the port's paths through ``solve_batch``:
   printed lines parsed) bit-identical to it with tracing off, the
   kernels' times with the trace off and on, their registers and
   spills, and what the traces show (flips, rounds at the last
-  unmatched person).
+  unmatched person);
+- host costs of six types (uint8, uint32, int64, int8, bool, float16;
+  8 x 256²) through ``solve_batch`` on the three dense solvers in both
+  senses: scipy's optimum on every instance, or the JAX package's answer
+  where integer wraps make it another (pinned by
+  ``tests/test_torch_dtypes.py``), the first 2 instances bit-equal to the
+  CPU route, and the JAX package's ``TypeError`` where it raises.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -1248,7 +1254,8 @@ def forward_loop(batch, costs, eps, solver):
     b, n, m = costs.shape
     t = {}
     t["host_params_ms"], (eps_val, target, tol, thr) = sync_ms(
-        lambda: batch._dense_engine_params(costs, solver, eps, n, m, 128.0))
+        lambda: batch._dense_engine_params(costs, False, solver, eps, n, m,
+                                            128.0))
     t["copy_to_card_ms"], dev = sync_ms(
         lambda: torch.from_numpy(costs).cuda())
     t["stage_ms"], work = sync_ms(lambda: batch._stage_work(dev, True))
@@ -2727,6 +2734,118 @@ def phase_kernel_trace(port, batch, fr_kernel, fr_big, ksp, fr_init,
     emit(out)
 
 
+#: the host_dtypes phase's cost types: the name and how the integers in
+#: [0, 1000) are brought into the type's range first
+HOST_DTYPES = {
+    "uint8": lambda x: x % 256,
+    "uint32": lambda x: x,
+    "int64": lambda x: x,
+    "int8": lambda x: x % 256 - 128,
+    "bool": lambda x: x,
+    "float16": lambda x: x,
+}
+
+#: the cases where the JAX package's answer is not scipy's optimum, and
+#: the port keeps it (ROADMAP.md section 3; tests/test_torch_dtypes.py):
+#: ``-costs`` wraps on unsigned costs, so the forward engine's start eps
+#: is near 2^32 / 128 and its float32 ladder stalls; the Khosla span of
+#: int8 costs holding -128 and 127 wraps to -1, a negative drop
+#: threshold that drops every person in the first round
+HOST_DTYPES_REFERENCE = {
+    ("uint32", "forward", False): "start eps from the wrapped C stalls",
+    ("int8", "khosla", False): "wrapped span drops every person",
+    ("int8", "khosla", True): "wrapped span drops every person",
+}
+
+#: rounds of the comparison with the CPU route: a whole Khosla solve of
+#: these costs takes thousands of plain rounds, seconds a case on the
+#: host
+HOST_DTYPES_CPU_ROUNDS = 128
+
+
+def host_dtypes_raises(name, solver, maximize) -> bool:
+    """Whether the JAX package raises numpy's ``TypeError`` on bool host
+    costs: every sign flip, the Khosla span (a bool subtract) and the FR
+    lattice check (``-costs.min()``) at N % 128 == 0."""
+    return name == "bool" and not (solver == "forward" and maximize)
+
+
+def phase_host_dtypes(port, fr_kernel, dr, scipy_lsa):
+    """``solve_batch`` on host costs of six types (8 x 256², integers in
+    [0, 1000) with a 0, brought into each type's range) on the three
+    solvers and both senses: every instance fully matched at scipy's
+    optimum, or where the JAX package's answer is not (the reference
+    cases above) the same unmatched persons; the first 2 instances
+    bit-equal to the CPU route over ``HOST_DTYPES_CPU_ROUNDS`` rounds.
+    Where the JAX package raises, the port raises the same
+    ``TypeError`` on the card and on the CPU."""
+    b, n = 8, 256
+    eps = 1.0 / (n + 1)
+    rng = np.random.default_rng(SEED + 12)
+    base = rng.integers(0, 1000, size=(b, n, n))
+    base[:, 0, 0] = 0
+    for name, into_range in HOST_DTYPES.items():
+        costs = into_range(base).astype(name)
+        exact = costs.astype(np.float64)
+        cases = []
+        t_dtype = time.perf_counter()
+        for solver in ("fr", "forward", "khosla"):
+            for maximize in (False, True):
+                kw = dict(solver=solver, maximize=maximize, eps=eps)
+                if host_dtypes_raises(name, solver, maximize):
+                    for device in ("cuda", "cpu"):
+                        try:
+                            port.solve_batch(costs[:2], device=device, **kw)
+                        except TypeError:
+                            continue
+                        raise AssertionError((name, solver, maximize,
+                                              device, "did not raise"))
+                    cases.append({"solver": solver, "maximize": maximize,
+                                  "raises": "TypeError"})
+                    continue
+                before = (fr_kernel.LAUNCHES, dr.LAUNCHES)
+                wall_ms, sol = sync_ms(lambda: port.solve_batch(costs, **kw))
+                launched = (fr_kernel.LAUNCHES - before[0],
+                            dr.LAUNCHES - before[1])
+                if solver == "fr":
+                    assert launched[0] > 0, (name, "fr_kernel not run")
+                if solver == "forward":
+                    assert launched[1] > 0, (name, "dense_round not run")
+                reference = HOST_DTYPES_REFERENCE.get(
+                    (name, solver, maximize))
+                if reference is None:
+                    assert int(sol.num_unassigned.max()) == 0, (
+                        name, solver, maximize, "unassigned persons")
+                    want = scipy_objectives(scipy_lsa, exact, range(b),
+                                            maximize)
+                    assert sol.objective.tolist() == want, (
+                        name, solver, maximize, "objectives")
+                else:
+                    assert int(sol.num_unassigned.min()) > 0, (
+                        name, solver, maximize, "reference case matched")
+                small = dict(kw, max_iterations=HOST_DTYPES_CPU_ROUNDS)
+                card = port.solve_batch(costs[:2], **small)
+                host = port.solve_batch(costs[:2], device="cpu", **small)
+                differ = solutions_equal(card, host, fields=(
+                    "person_to_object", "object_to_person", "num_unassigned",
+                    "nits", "objective", "eps"))
+                assert not differ, (name, solver, maximize, "card != cpu",
+                                    differ)
+                cases.append({
+                    "solver": solver, "maximize": maximize,
+                    "wall_ms": wall_ms, "nits_p50": float(np.median(sol.nits)),
+                    "nits_max": int(sol.nits.max()),
+                    "unassigned": int(sol.num_unassigned.sum()),
+                    "check": (f"reference: {reference}" if reference
+                              else f"scipy optimum on all {b}"),
+                    "fr_kernel_launches": launched[0],
+                    "dense_round_launches": launched[1],
+                    "cpu_bit_equal_rounds": HOST_DTYPES_CPU_ROUNDS})
+        emit({"phase": "host_dtypes", "dtype": name, "batch": b, "n": n,
+              "eps": eps, "seconds": time.perf_counter() - t_dtype,
+              "cases": cases})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -2984,7 +3103,10 @@ def main() -> int:
                         "big_kernel_time_ms": big["ms"],
                         "ksp_kernel_time_ms": kspt["ms"]})
 
-    # 14. the run's total and the kernels line
+    # 14. host costs of six types on the three dense solvers
+    phase_host_dtypes(port, fr_kernel, dr, scipy_lsa)
+
+    # 15. the run's total and the kernels line
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     emit({"kernels": [{
         "name": "fr_kernel",

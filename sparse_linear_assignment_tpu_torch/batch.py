@@ -682,8 +682,8 @@ def _solve_batch_dense(work, eps, target_eps, toleration, thresholds,
     return states.p2o, final_eps, states.nits
 
 
-def _dense_engine_params(costs, solver: str, eps, n: int, m: int,
-                         start_eps_divisor: float):
+def _dense_engine_params(costs, maximize: bool, solver: str, eps, n: int,
+                         m: int, start_eps_divisor: float):
     """Host-side parameters of the forward and Khosla engines, from the
     host costs: ``(eps_val, target_eps, toleration, thresholds [B])``.
 
@@ -694,16 +694,28 @@ def _dense_engine_params(costs, solver: str, eps, n: int, m: int,
     reference crate starts at ``C/2``; a smaller start converges in
     fewer Jacobi rounds, and keep-valid pairs make later phases cheap)
     and the target itself on ``N < M``, where eps-scaling is unsound;
-    the toleration is ``2^(floor(log2 C) - 53)``.  The value span and
-    ``C = max |cost|`` are those of the sign-adjusted values too, so no
-    negated copy of the costs is made."""
+    the toleration is ``2^(floor(log2 C) - 53)``.
+
+    The value span and ``C = max |cost|`` are those of the sign-adjusted
+    values, as in the JAX package.  Floating-point costs take them
+    without a negated copy: negation is exact there, so ``max(max,
+    -min)`` is ``max |±cost|`` and the span is sign-free.  Integer and
+    bool costs evaluate the JAX package's own expressions on ``costs if
+    maximize else -costs``, wraps of the integer type included (bool
+    with ``maximize=False`` raises numpy's ``TypeError``, as there)."""
     flat = costs.reshape(costs.shape[0], -1)
+    exact_negation = flat.dtype.kind == "f"
+    if not (exact_negation or maximize):
+        flat = -flat
     if solver == "khosla":
         eps_val = float(eps) if eps is not None else 1.0 / m
         w_span = flat.max(axis=1) - flat.min(axis=1)
         return eps_val, 0.0, 0.0, (m / 2.0) * (w_span + eps_val)
     eps_val = float(eps) if eps is not None else 1.0 / n
-    c = np.maximum(flat.max(axis=1), -flat.min(axis=1))  # max |cost|
+    if exact_negation:
+        c = np.maximum(flat.max(axis=1), -flat.min(axis=1))  # max |cost|
+    else:
+        c = np.abs(flat).max(axis=1)
     thresholds = np.where(n == m, c / start_eps_divisor, eps_val)
     toleration = float(
         2.0 ** (max(0, int(np.log2(float(c.max()) + 1e-7))) - 53)
@@ -802,7 +814,7 @@ def solve_batch(
     p2o_dev = work = tail = tail_nits = None
     if solver != "fr":
         eps_val, target_eps, toleration, thresholds = _dense_engine_params(
-            costs, solver, eps, n, m, start_eps_divisor
+            costs, maximize, solver, eps, n, m, start_eps_divisor
         )
         p2o_dev, eps_dev, nits_dev = _solve_batch_dense(
             _stage_work(costs_dev, not maximize), eps_val, target_eps,
