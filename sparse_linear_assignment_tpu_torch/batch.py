@@ -103,7 +103,13 @@ from .ops.ksparse_kernel import (
     ksp_chunk_reference,
 )
 from .solution import UNASSIGNED, convert_indices, o2p_from_p2o
-from .utils.trace import trace_host
+from .utils.trace import (
+    FINISH_SPAN,
+    SOLVE_BATCH_SPAN,
+    WAIT_SPAN,
+    span,
+    trace_host,
+)
 
 #: elements per instance up to which the fused FR path serves
 _FUSED_MAX_ELEMS = 1024 * 1024
@@ -335,7 +341,9 @@ def _fr_continue(values_t, work, states, rounds: int, max_iterations: int,
     stages once at most ``_BUCKET`` remain (the JAX schedule).  Returns
     ``(states, rounds, undone)``."""
     while True:
-        undone = int((~states.done).sum())  # the blocking readback
+        undone_dev = (~states.done).sum()
+        with span(WAIT_SPAN):
+            undone = int(undone_dev)  # the blocking readback
         trace_host("fr fused: rounds={} undone={}/{}", rounds, undone,
                    values_t.shape[0])
         if undone <= tail_cut or rounds >= max_iterations:
@@ -415,8 +423,9 @@ def _fr_big_solve(costs_dev, negate: bool, eps_val, max_iterations: int):
         st = fr_init(vt, eps_val, values=v)
         while True:
             st, _ = fr_big_chunk(vt, st, budget, values=v)
-            rounds, fin = torch.stack(
-                [st.nits[0], st.done[0].to(torch.int32)]).tolist()
+            progress = torch.stack([st.nits[0], st.done[0].to(torch.int32)])
+            with span(WAIT_SPAN):
+                rounds, fin = progress.tolist()
             trace_host("fr big single {}: rounds={} done={}", bi, rounds,
                        bool(fin))
             if fin or rounds >= max_iterations:
@@ -556,7 +565,8 @@ def _solve_batch_fr_plain(
                                  level_chunk)
         rounds += level_chunk
         # one host sync per chunk: the done vector
-        done_mask = states.done.cpu().numpy()
+        with span(WAIT_SPAN):
+            done_mask = states.done.cpu().numpy()
         undone = np.nonzero(~done_mask)[0]
         trace_host("fr plain: rounds={} undone={}/{}", rounds, len(undone),
                    cur_b)
@@ -671,7 +681,8 @@ def _solve_batch_dense(work, eps, target_eps, toleration, thresholds,
                 solver, max_iterations, chunk, n, m,
             )
         rounds += chunk
-        finished = bool(alldone)  # the blocking readback
+        with span(WAIT_SPAN):
+            finished = bool(alldone)  # the blocking readback
         trace_host("{}: rounds={} alldone={}", solver, rounds, finished)
         if finished or rounds >= max_iterations:
             break
@@ -763,141 +774,151 @@ def solve_batch(
     (``cost * D``, eps = 1 with ``D = 1/eps``, default ``D = N + 1``),
     exactly optimal by construction.  ``integer=None`` auto-detects on
     host costs; ``integer=True`` opts device-resident costs in and
-    requires ``max_cost``; ``integer=False`` forces the float path."""
+    requires ``max_cost``; ``integer=False`` forces the float path.
+
+    Under a ``torch.profiler`` recording a call marks the spans of
+    ``utils.trace.SPANS``: ``slap.solve_batch`` around it all, one
+    ``slap.wait`` a blocking readback of the solver driver, then
+    ``slap.finish`` from the driver's end to the returned solution
+    (the readbacks, the native tail where host costs have one, the
+    objective, the counts), holding ``o2p_from_p2o``'s ``slap.invert``."""
     global LAST_TAIL_COUNT
-    if solver == "auto":
-        solver = "fr"
-    if solver not in ("fr", "forward", "khosla"):
-        raise ValueError(f"unknown solver {solver!r}")
-    if costs is None:
-        if costs_device is None:
-            raise ValueError("pass costs, costs_device, or both")
+    with span(SOLVE_BATCH_SPAN):
+        if solver == "auto":
+            solver = "fr"
+        if solver not in ("fr", "forward", "khosla"):
+            raise ValueError(f"unknown solver {solver!r}")
+        if costs is None:
+            if costs_device is None:
+                raise ValueError("pass costs, costs_device, or both")
+            if solver != "fr":
+                raise ValueError(
+                    "device-resident mode (costs=None) requires solver='fr'"
+                )
+            b, n, m = costs_device.shape
+        else:
+            costs = np.asarray(costs)
+            if costs.ndim != 3:
+                raise ValueError("costs must be [batch, num_rows, num_cols]")
+            b, n, m = costs.shape
+        if n > m:
+            raise ValueError("num_rows must be <= num_cols")
+        if costs is None and n != m:
+            raise ValueError("device-resident mode requires square instances")
+        if solver == "fr" and n != m:
+            solver = "forward"
+        int_scale = (
+            _integer_scale(costs, eps, n, m, integer, max_cost)
+            if solver == "fr" else None
+        )
+
+        np_dtype = np.dtype(dtype)
+        tdtype = _torch_dtype(dtype)
+        if costs_device is not None:
+            if costs is not None and tuple(costs_device.shape) != costs.shape:
+                raise ValueError("costs_device must match costs' shape")
+            if not isinstance(costs_device, torch.Tensor):
+                costs_device = torch.as_tensor(
+                    np.asarray(costs_device), device=resolve_device(device)
+                )
+            costs_dev = costs_device.to(tdtype)
+        else:
+            # no host copy when the costs already have the solve's type
+            host = np.ascontiguousarray(costs, dtype=dtype)
+            if not host.flags.writeable:
+                host = host.copy()
+            costs_dev = torch.from_numpy(host).to(resolve_device(device))
+            del host
+
+        p2o_dev = work = done = eps_dev = tail = tail_nits = None
+        tail_allowed = True
         if solver != "fr":
-            raise ValueError(
-                "device-resident mode (costs=None) requires solver='fr'"
+            eps_val, target_eps, toleration, thresholds = _dense_engine_params(
+                costs, maximize, solver, eps, n, m, start_eps_divisor
             )
-        b, n, m = costs_device.shape
-    else:
-        costs = np.asarray(costs)
-        if costs.ndim != 3:
-            raise ValueError("costs must be [batch, num_rows, num_cols]")
-        b, n, m = costs.shape
-    if n > m:
-        raise ValueError("num_rows must be <= num_cols")
-    if costs is None and n != m:
-        raise ValueError("device-resident mode requires square instances")
-    if solver == "fr" and n != m:
-        solver = "forward"
-    int_scale = (
-        _integer_scale(costs, eps, n, m, integer, max_cost)
-        if solver == "fr" else None
-    )
-
-    np_dtype = np.dtype(dtype)
-    tdtype = _torch_dtype(dtype)
-    if costs_device is not None:
-        if costs is not None and tuple(costs_device.shape) != costs.shape:
-            raise ValueError("costs_device must match costs' shape")
-        if not isinstance(costs_device, torch.Tensor):
-            costs_device = torch.as_tensor(
-                np.asarray(costs_device), device=resolve_device(device)
+            p2o_dev, eps_dev, nits_dev = _solve_batch_dense(
+                _stage_work(costs_dev, not maximize), eps_val, target_eps,
+                toleration, thresholds, solver, int(max_iterations), n, m,
             )
-        costs_dev = costs_device.to(tdtype)
-    else:
-        # no host copy when the costs already have the solve's type
-        host = np.ascontiguousarray(costs, dtype=dtype)
-        if not host.flags.writeable:
-            host = host.copy()
-        costs_dev = torch.from_numpy(host).to(resolve_device(device))
-        del host
-
-    p2o_dev = work = tail = tail_nits = None
-    if solver != "fr":
-        eps_val, target_eps, toleration, thresholds = _dense_engine_params(
-            costs, maximize, solver, eps, n, m, start_eps_divisor
-        )
-        p2o_dev, eps_dev, nits_dev = _solve_batch_dense(
-            _stage_work(costs_dev, not maximize), eps_val, target_eps,
-            toleration, thresholds, solver, int(max_iterations), n, m,
-        )
-        p2o = p2o_dev.cpu().numpy()
-        nits = nits_dev.cpu().numpy()
-        final_eps = eps_dev.cpu().numpy().astype(np.float64)
-    else:
-        if int_scale is not None:
-            trace_host("solve_batch: integer-auction mode, scale={}",
-                       int_scale)
-            eps_val = 1  # lattice eps; original units: 1 / int_scale
-            tail_eps = 1.0 / int_scale
         else:
-            eps_val = float(eps) if eps is not None else 1.0 / n
-            tail_eps = float(np_dtype.type(eps_val))
-        final_eps = np.full(b, tail_eps)
-        route = _route(b, n, m, dtype, int_scale)
-        if route == "plain":
-            p2o, nits, tail, tail_nits = _solve_batch_fr_plain(
-                _stage_values_t(costs_dev, not maximize), eps_val,
-                int(max_iterations), native_tail=costs is not None,
+            if int_scale is not None:
+                trace_host("solve_batch: integer-auction mode, scale={}",
+                           int_scale)
+                eps_val = 1  # lattice eps; original units: 1 / int_scale
+                tail_eps = 1.0 / int_scale
+            else:
+                eps_val = float(eps) if eps is not None else 1.0 / n
+                tail_eps = float(np_dtype.type(eps_val))
+            final_eps = np.full(b, tail_eps)
+            route = _route(b, n, m, dtype, int_scale)
+            if route == "plain":
+                p2o, nits, tail, tail_nits = _solve_batch_fr_plain(
+                    _stage_values_t(costs_dev, not maximize), eps_val,
+                    int(max_iterations), native_tail=costs is not None,
+                )
+            elif route == "big":
+                p2o_dev, nits_dev, done = _fr_big_solve(
+                    costs_dev, not maximize, eps_val, max_iterations
+                )
+            else:
+                rounds = _fr_fused_schedule(b, n, max_iterations)
+                values_t, work, states = _fr_dispatch(
+                    costs_dev, not maximize, int_scale, eps_val, rounds
+                )
+                states, rounds, LAST_TAIL_COUNT = _fr_continue(
+                    values_t, work, states, rounds, max_iterations,
+                    tail_cut=_TAIL_CUT if costs is not None else 0,
+                )
+                p2o_dev, nits_dev, done = states.p2o, states.nits, states.done
+                # the fused route finishes stragglers natively only within
+                # the round budget, and reports the device rounds spent as
+                # their nits (as the plain route does)
+                tail_allowed = rounds < max_iterations
+                tail_nits = rounds
+        with span(FINISH_SPAN):
+            if done is not None:
+                tail = ~done.cpu().numpy() & tail_allowed
+            if p2o_dev is not None:
+                p2o = p2o_dev.cpu().numpy()
+                nits = nits_dev.cpu().numpy()
+            if eps_dev is not None:
+                final_eps = eps_dev.cpu().numpy().astype(np.float64)
+            if costs is not None and tail is not None and tail.any():
+                _native_tail(costs, maximize, tail_eps, max_iterations,
+                             np.nonzero(tail)[0], p2o)
+                if tail_nits is not None:
+                    nits[tail] = tail_nits
+            assigned = p2o != UNASSIGNED
+            if costs is None:
+                if p2o_dev is None:
+                    p2o_dev = torch.from_numpy(p2o).to(costs_dev.device)
+                if int_scale is None:
+                    # the costs themselves: the staged values are only their
+                    # negation
+                    objective = _device_objective(costs_dev, p2o_dev, False)
+                    objective = objective.cpu().numpy()
+                else:
+                    objective = _device_objective(work, p2o_dev, not maximize)
+                    # the summands are original integers times the scale: exact
+                    objective = objective.cpu().numpy() / int_scale
+            else:
+                safe = np.where(assigned, p2o, 0)
+                # widened after the pick: the same float64 numbers without a
+                # float64 copy of the whole batch
+                picked = np.take_along_axis(
+                    costs, safe[:, :, None], axis=2
+                )[:, :, 0].astype(np.float64)
+                objective = np.where(assigned, picked, 0.0).sum(axis=1)
+            return BatchSolution(
+                person_to_object=p2o,
+                # rebuilt from the final matching: keep-valid phases of the
+                # forward engine leave the rounds' o2p stale by design
+                object_to_person=o2p_from_p2o(p2o, m),
+                num_unassigned=(~assigned).sum(axis=1).astype(np.int32),
+                objective=objective,
+                eps=final_eps,
+                nits=nits,
             )
-        elif route == "big":
-            p2o_dev, nits_dev, done = _fr_big_solve(
-                costs_dev, not maximize, eps_val, max_iterations
-            )
-            tail = ~done.cpu().numpy()
-        else:
-            rounds = _fr_fused_schedule(b, n, max_iterations)
-            values_t, work, states = _fr_dispatch(
-                costs_dev, not maximize, int_scale, eps_val, rounds
-            )
-            states, rounds, LAST_TAIL_COUNT = _fr_continue(
-                values_t, work, states, rounds, max_iterations,
-                tail_cut=_TAIL_CUT if costs is not None else 0,
-            )
-            p2o_dev, nits_dev = states.p2o, states.nits
-            # the fused route finishes stragglers natively only within
-            # the round budget, and reports the device rounds spent as
-            # their nits (as the plain route does)
-            tail = ~states.done.cpu().numpy() & (rounds < max_iterations)
-            tail_nits = rounds
-        if p2o_dev is not None:
-            p2o = p2o_dev.cpu().numpy()
-            nits = nits_dev.cpu().numpy()
-        if costs is not None and tail.any():
-            _native_tail(costs, maximize, tail_eps, max_iterations,
-                         np.nonzero(tail)[0], p2o)
-            if tail_nits is not None:
-                nits[tail] = tail_nits
-    assigned = p2o != UNASSIGNED
-    if costs is None:
-        if p2o_dev is None:
-            p2o_dev = torch.from_numpy(p2o).to(costs_dev.device)
-        if int_scale is None:
-            # the costs themselves: the staged values are only their
-            # negation
-            objective = _device_objective(costs_dev, p2o_dev, False)
-            objective = objective.cpu().numpy()
-        else:
-            objective = _device_objective(work, p2o_dev, not maximize)
-            # the summands are original integers times the scale: exact
-            objective = objective.cpu().numpy() / int_scale
-    else:
-        safe = np.where(assigned, p2o, 0)
-        # widened after the pick: the same float64 numbers without a
-        # float64 copy of the whole batch
-        picked = np.take_along_axis(
-            costs, safe[:, :, None], axis=2
-        )[:, :, 0].astype(np.float64)
-        objective = np.where(assigned, picked, 0.0).sum(axis=1)
-    return BatchSolution(
-        person_to_object=p2o,
-        # rebuilt from the final matching: keep-valid phases of the
-        # forward engine leave the rounds' o2p stale by design
-        object_to_person=o2p_from_p2o(p2o, m),
-        num_unassigned=(~assigned).sum(axis=1).astype(np.int32),
-        objective=objective,
-        eps=final_eps,
-        nits=nits,
-    )
 
 
 def solve_batch_stream(

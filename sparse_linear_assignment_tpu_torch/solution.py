@@ -1,9 +1,9 @@
 """The solution object and the index conventions of the results.
 
-A NumPy-only copy of the JAX package's ``solution.py`` (the port imports
-nothing of that package): ``int32`` indices with
-``UNASSIGNED == 2**31 - 1`` marking an unassigned person or object, the
-role of the reference crate's ``I::max_value()``.
+A NumPy copy of the JAX package's ``solution.py`` (the port imports
+nothing of that package), with a profiler span around the inversion:
+``int32`` indices with ``UNASSIGNED == 2**31 - 1`` marking an unassigned
+person or object, the role of the reference crate's ``I::max_value()``.
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ import dataclasses
 import math
 
 import numpy as np
+
+from .utils.trace import INVERT_SPAN, span
 
 #: sentinel for unassigned persons/objects (the reference's
 #: ``I::max_value()`` for the int32 index type)
@@ -99,10 +101,11 @@ def o2p_from_p2o(p2o: np.ndarray, num_cols: int) -> np.ndarray:
     """Object→person from person→object (the matching is injective on
     assigned pairs, so the inverse is exact).  Accepts ``[N]`` or
     batched ``[B, N]``; unmatched objects get ``UNASSIGNED``."""
-    p2o = np.asarray(p2o)
-    batched = p2o.ndim == 2
-    p2o2 = p2o if batched else p2o[None, :]
-    o2p = np.full((p2o2.shape[0], num_cols), UNASSIGNED, dtype=np.int32)
-    rows, cols = np.nonzero(p2o2 != UNASSIGNED)
-    o2p[rows, p2o2[rows, cols]] = cols
-    return o2p if batched else o2p[0]
+    with span(INVERT_SPAN):
+        p2o = np.asarray(p2o)
+        batched = p2o.ndim == 2
+        p2o2 = p2o if batched else p2o[None, :]
+        o2p = np.full((p2o2.shape[0], num_cols), UNASSIGNED, dtype=np.int32)
+        rows, cols = np.nonzero(p2o2 != UNASSIGNED)
+        o2p[rows, p2o2[rows, cols]] = cols
+        return o2p if batched else o2p[0]

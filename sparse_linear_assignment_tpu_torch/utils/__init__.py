@@ -3,6 +3,7 @@ from .trace import (
     is_enabled,
     profile_solve,
     set_debug,
+    span,
     trace_host,
     trace_round,
 )

@@ -1,10 +1,11 @@
-"""Tracing: gated host, round and in-kernel round prints, and a profiler
-context.
+"""Tracing: gated host, round and in-kernel round prints, a profiler
+context, and named spans in the profiler's timeline.
 
-Gated on the same ``SLAP_TPU_DEBUG`` environment variable as the JAX
-package.  PyTorch runs eagerly, so a round trace formats its tensors
-when it is called (which synchronises with the device); with tracing
-off the calls cost one flag test.
+The prints are gated on the same ``SLAP_TPU_DEBUG`` environment variable
+as the JAX package.  PyTorch runs eagerly, so a round trace formats its
+tensors when it is called (which synchronises with the device); with
+tracing off the calls cost one flag test.  The spans (:func:`span`) are
+gated on a ``torch.profiler`` recording instead.
 """
 
 from __future__ import annotations
@@ -13,6 +14,18 @@ import contextlib
 import os
 import sys
 from typing import Iterator
+
+import torch
+
+#: the program's spans, host events on the profiler's clock beside the
+#: device operations; each is read by a metric of the benchmark
+SOLVE_BATCH_SPAN = "slap.solve_batch"  # the whole of ``solve_batch``
+WAIT_SPAN = "slap.wait"  # a solver driver's blocking progress readback
+FINISH_SPAN = "slap.finish"  # ``solve_batch`` after its driver
+INVERT_SPAN = "slap.invert"  # ``solution.o2p_from_p2o``
+SPANS = (SOLVE_BATCH_SPAN, WAIT_SPAN, FINISH_SPAN, INVERT_SPAN)
+
+_NO_SPAN = contextlib.nullcontext()
 
 _DEBUG = bool(os.environ.get("SLAP_TPU_DEBUG"))
 
@@ -53,6 +66,17 @@ def trace_kernel_round(fmt: str, *args) -> None:
         print(fmt.format(*args), file=sys.stderr, flush=True)
 
 
+def span(name: str):
+    """A context that marks a span ``name`` in the timeline of a
+    ``torch.profiler`` recording in this thread
+    (``torch.profiler.record_function``), or, with no recording, one
+    shared null context: a span costs one flag test then.  Independent of
+    ``SLAP_TPU_DEBUG`` and :func:`set_debug`, which gate the prints."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
 #: the Chrome trace's file name inside ``profile_solve``'s ``log_dir``
 TRACE_FILE = "slap_torch_trace.json"
 
@@ -64,8 +88,6 @@ def profile_solve(log_dir: str = "/tmp/slap_tpu_profile") -> Iterator:
     ``log_dir`` (created if missing) as :data:`TRACE_FILE`; the JAX
     package's keyword and default.  Yields the profiler:
     ``with profile_solve() as prof: solve_batch(...)``."""
-    import torch
-
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
