@@ -102,7 +102,8 @@ from .ops.ksparse_kernel import (
     ksp_chunk,
     ksp_chunk_reference,
 )
-from .solution import UNASSIGNED, convert_indices, o2p_from_p2o
+from .solution import (UNASSIGNED, convert_indices, o2p_from_p2o,
+                       o2p_from_p2o_device)
 from .utils.trace import (
     FINISH_SPAN,
     SOLVE_BATCH_SPAN,
@@ -456,6 +457,22 @@ def _device_objective(work, p2o, negate: bool) -> torch.Tensor:
     return -obj if negate else obj
 
 
+def _read_matching(p2o_dev: torch.Tensor, m: int):
+    """The final matching, its object→person map and its unassigned
+    counts, built from ``p2o_dev [B, N]`` on its device
+    (``o2p_from_p2o_device``, which rebuilds the map whatever the rounds
+    left in theirs) and read back in one int32 transfer: ``(p2o [B, N],
+    o2p [B, M], num_unassigned [B])``, C-contiguous views of one host
+    array."""
+    b, n = p2o_dev.shape
+    o2p, num_unassigned = o2p_from_p2o_device(p2o_dev, m)
+    flat = torch.cat(
+        [p2o_dev.reshape(-1), o2p.reshape(-1), num_unassigned]
+    ).cpu().numpy()
+    return (flat[:b * n].reshape(b, n), flat[b * n:b * (n + m)].reshape(b, m),
+            flat[b * (n + m):])
+
+
 def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, dtype)).dtype
 
@@ -781,7 +798,9 @@ def solve_batch(
     ``slap.wait`` a blocking readback of the solver driver, then
     ``slap.finish`` from the driver's end to the returned solution
     (the readbacks, the native tail where host costs have one, the
-    objective, the counts), holding ``o2p_from_p2o``'s ``slap.invert``."""
+    objective, the counts), holding one ``slap.invert``: the inversion on
+    the device (``o2p_from_p2o_device``) where the device holds the final
+    matching, else ``o2p_from_p2o`` on the host."""
     global LAST_TAIL_COUNT
     with span(SOLVE_BATCH_SPAN):
         if solver == "auto":
@@ -878,17 +897,21 @@ def solve_batch(
         with span(FINISH_SPAN):
             if done is not None:
                 tail = ~done.cpu().numpy() & tail_allowed
+            host_tail = costs is not None and tail is not None and tail.any()
+            # the device holds the final matching unless the native tail
+            # rewrites it on the host
+            on_device = p2o_dev is not None and not host_tail
             if p2o_dev is not None:
-                p2o = p2o_dev.cpu().numpy()
+                if not on_device:
+                    p2o = p2o_dev.cpu().numpy()
                 nits = nits_dev.cpu().numpy()
             if eps_dev is not None:
                 final_eps = eps_dev.cpu().numpy().astype(np.float64)
-            if costs is not None and tail is not None and tail.any():
+            if host_tail:
                 _native_tail(costs, maximize, tail_eps, max_iterations,
                              np.nonzero(tail)[0], p2o)
                 if tail_nits is not None:
                     nits[tail] = tail_nits
-            assigned = p2o != UNASSIGNED
             if costs is None:
                 if p2o_dev is None:
                     p2o_dev = torch.from_numpy(p2o).to(costs_dev.device)
@@ -901,7 +924,17 @@ def solve_batch(
                     objective = _device_objective(work, p2o_dev, not maximize)
                     # the summands are original integers times the scale: exact
                     objective = objective.cpu().numpy() / int_scale
+            # after the device objective, whose transients are freed by now
+            if on_device:
+                p2o, o2p, num_unassigned = _read_matching(p2o_dev, m)
             else:
+                # rebuilt from the final matching: keep-valid phases of the
+                # forward engine leave the rounds' o2p stale by design
+                o2p = o2p_from_p2o(p2o, m)
+                num_unassigned = (p2o == UNASSIGNED).sum(axis=1).astype(
+                    np.int32)
+            if costs is not None:
+                assigned = p2o != UNASSIGNED
                 safe = np.where(assigned, p2o, 0)
                 # widened after the pick: the same float64 numbers without a
                 # float64 copy of the whole batch
@@ -911,10 +944,8 @@ def solve_batch(
                 objective = np.where(assigned, picked, 0.0).sum(axis=1)
             return BatchSolution(
                 person_to_object=p2o,
-                # rebuilt from the final matching: keep-valid phases of the
-                # forward engine leave the rounds' o2p stale by design
-                object_to_person=o2p_from_p2o(p2o, m),
-                num_unassigned=(~assigned).sum(axis=1).astype(np.int32),
+                object_to_person=o2p,
+                num_unassigned=num_unassigned,
                 objective=objective,
                 eps=final_eps,
                 nits=nits,

@@ -4,6 +4,8 @@ A NumPy copy of the JAX package's ``solution.py`` (the port imports
 nothing of that package), with a profiler span around the inversion:
 ``int32`` indices with ``UNASSIGNED == 2**31 - 1`` marking an unassigned
 person or object, the role of the reference crate's ``I::max_value()``.
+Beside the NumPy inversion, :func:`o2p_from_p2o_device` builds the same
+map and the unassigned counts with PyTorch on the matching's device.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import dataclasses
 import math
 
 import numpy as np
+import torch
 
 from .utils.trace import INVERT_SPAN, span
 
@@ -20,6 +23,10 @@ from .utils.trace import INVERT_SPAN, span
 UNASSIGNED: int = np.iinfo(np.int32).max
 
 INDEX_DTYPE = np.int32
+
+#: calls of each inversion: ``"host"`` counts :func:`o2p_from_p2o`,
+#: ``"device"`` :func:`o2p_from_p2o_device`
+INVERSIONS = {"device": 0, "host": 0}
 
 
 def unassigned_value(index_dtype=INDEX_DTYPE) -> int:
@@ -101,6 +108,7 @@ def o2p_from_p2o(p2o: np.ndarray, num_cols: int) -> np.ndarray:
     """Object→person from person→object (the matching is injective on
     assigned pairs, so the inverse is exact).  Accepts ``[N]`` or
     batched ``[B, N]``; unmatched objects get ``UNASSIGNED``."""
+    INVERSIONS["host"] += 1
     with span(INVERT_SPAN):
         p2o = np.asarray(p2o)
         batched = p2o.ndim == 2
@@ -109,3 +117,32 @@ def o2p_from_p2o(p2o: np.ndarray, num_cols: int) -> np.ndarray:
         rows, cols = np.nonzero(p2o2 != UNASSIGNED)
         o2p[rows, p2o2[rows, cols]] = cols
         return o2p if batched else o2p[0]
+
+
+def o2p_from_p2o_device(p2o: torch.Tensor,
+                        num_cols: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`o2p_from_p2o` on the matching's own device: from an int32
+    ``[B, N]`` tensor, object→person ``[B, num_cols]`` (``UNASSIGNED``
+    for unowned objects) and the unassigned persons ``[B]``, both int32
+    tensors on that device.  Equal to the NumPy inversion bit for bit,
+    where persons name one object too: the highest person index wins,
+    as NumPy's last write does (``amax``, which, unlike a plain scatter,
+    is deterministic on CUDA).  Unassigned persons scatter into a dummy
+    column ``num_cols``, sliced off."""
+    INVERSIONS["device"] += 1
+    with span(INVERT_SPAN):
+        b, n = p2o.shape
+        idx = p2o.to(torch.int64)
+        free = idx == UNASSIGNED
+        idx.masked_fill_(free, num_cols)
+        num_unassigned = free.sum(dim=1, dtype=torch.int32)
+        # each transient freed before the next allocation: a caller's
+        # finish runs near its peak memory
+        del free
+        o2p = torch.full((b, num_cols + 1), -1, dtype=torch.int32,
+                         device=p2o.device)
+        persons = torch.arange(n, dtype=torch.int32, device=p2o.device)
+        o2p.scatter_reduce_(1, idx, persons.expand(b, n), "amax")
+        del idx
+        o2p = o2p[:, :num_cols]
+        return torch.where(o2p < 0, UNASSIGNED, o2p), num_unassigned

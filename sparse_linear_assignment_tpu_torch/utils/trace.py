@@ -22,7 +22,7 @@ import torch
 SOLVE_BATCH_SPAN = "slap.solve_batch"  # the whole of ``solve_batch``
 WAIT_SPAN = "slap.wait"  # a solver driver's blocking progress readback
 FINISH_SPAN = "slap.finish"  # ``solve_batch`` after its driver
-INVERT_SPAN = "slap.invert"  # ``solution.o2p_from_p2o``
+INVERT_SPAN = "slap.invert"  # ``solution``'s two inversions
 SPANS = (SOLVE_BATCH_SPAN, WAIT_SPAN, FINISH_SPAN, INVERT_SPAN)
 
 _NO_SPAN = contextlib.nullcontext()

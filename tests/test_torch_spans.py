@@ -6,7 +6,8 @@ readers rely on, on every dense route of ``solve_batch``.
 - each ``solve_batch`` call holds one ``slap.solve_batch``, inside it
   one or more ``slap.wait`` (a driver's blocking readbacks), then one
   ``slap.finish`` holding one ``slap.invert``;
-- ``o2p_from_p2o`` marks ``slap.invert`` for every caller;
+- ``o2p_from_p2o`` marks ``slap.invert`` for every caller, and so does
+  ``o2p_from_p2o_device``;
 - a solve under the profiler returns the same bits as one without.
 """
 
@@ -153,4 +154,14 @@ def test_o2p_from_p2o_marks_the_inversion(batched, tmp_path):
     want = solution.o2p_from_p2o(p2o, 4)
     got, spans = _recorded(lambda: solution.o2p_from_p2o(p2o, 4), tmp_path)
     np.testing.assert_array_equal(got, want)
+    assert [s[0] for s in spans] == [INVERT]
+
+
+def test_o2p_from_p2o_device_marks_the_inversion(tmp_path):
+    p2o = np.array([[2, solution.UNASSIGNED, 0], [1, 0, 3]], np.int32)
+    (got, free), spans = _recorded(
+        lambda: solution.o2p_from_p2o_device(torch.from_numpy(p2o), 4),
+        tmp_path)
+    np.testing.assert_array_equal(got.numpy(), solution.o2p_from_p2o(p2o, 4))
+    assert free.tolist() == [1, 0]
     assert [s[0] for s in spans] == [INVERT]
