@@ -24,6 +24,16 @@ drives the port's paths through ``solve_batch``:
   kernel's time beside its bound, its phase split and CTA timeline; the
   host-staged path with column compaction (``solve_batch_sparse``) on
   1024 x (256 x 2048, k = 8); a batch with infeasible instances;
+- the arc route on the arc Khosla kernel (``csrc/ksp_arcs_kernel.cu``):
+  the kernel bit-equal to its plain version in float32 and float64 on
+  small cases (unsorted slots, repeated columns, single arcs, an
+  infeasible instance), on the float32 stall at the crate's ε, and to
+  the plane kernel at 64 x 128 x 8,192; the reference crate's config B,
+  2 x 256 x (2,000 x 60,000, 32 arcs) made on the card, staged with no
+  plane (float64, ε = 1/60,000) and streamed, scipy's optimum on a
+  sample; the kernel's time beside its bound and its plain version, its
+  phase split and CTA timeline, its float32 instance where float32
+  keeps ε (2^-12) and the padded engine on the same batch;
 - the forward engine on the fused round kernel: 4096 instances of
   256 persons x 512 objects through ``solve_batch`` (``solver="auto"``,
   scipy's objective on a sample), the eps-scaling path on 512 x 256²
@@ -1035,6 +1045,372 @@ def phase_sparse_infeasible(port):
           "infeasible": list(bad), "num_unassigned": want.tolist(),
           "owners_of_the_shared_object": owners,
           "nits_max": int(sol.nits.max()), "wall_ms": wall_ms})
+
+
+# ----------------------------------------------------------------------
+# the arc Khosla kernel (csrc/ksp_arcs_kernel.cu) and its route
+# ----------------------------------------------------------------------
+ARCS_FIELDS = ("prices", "p2o", "dropped", "nits")
+#: the reference crate's ε for config B: n·ε = 0.033 < 1, exact optimum
+CRATE_EPS = 1 / 60_000
+#: a coarser ε that float32 keeps at the crate's values (its spacing at
+#: 2,000 is 2^-13) and that still gives the exact optimum (n·ε < 1)
+CRATE_EPS_F32 = 2.0 ** -12
+
+
+def arcs_states_differ(a, b):
+    return [k for k in ARCS_FIELDS
+            if not torch.equal(getattr(a, k), getattr(b, k))]
+
+
+def arcs_small_case(seed, b, n, m, k, hi):
+    """Arcs on the card with a repeated column, single-arc persons and
+    unsorted slots; instance 2 infeasible (every person's only arc is
+    object 0, threshold 0.5: it drops)."""
+    rng = np.random.default_rng(seed)
+    cols = np.stack([np.stack([rng.choice(m, size=k, replace=False)
+                               for _ in range(n)])
+                     for _ in range(b)]).astype(np.int32)
+    vals = -rng.integers(1, hi, size=(b, n, k)).astype(np.float64)
+    cols[0, 1, 1] = cols[0, 1, 0]
+    cols[0, 2, 1:] = -1
+    cols[2] = 0
+    cols[2, :, 1:] = -1
+    cols[3, :, 2] = cols[3, :, k - 1]
+    thr = np.full(b, (m / 2.0) * (hi + 1.0 / m))
+    thr[2] = 0.5
+    return (torch.from_numpy(cols).cuda(), torch.from_numpy(vals).cuda(),
+            torch.from_numpy(thr).cuda())
+
+
+def densify_arcs(cols, vals, m):
+    """The plane of the arcs, a repeated column's later slot kept (the
+    staging's scatter, one slot at a time)."""
+    b, n, k = cols.shape
+    plane = torch.full((b, n, m), -float("inf"), dtype=vals.dtype,
+                       device=cols.device)
+    for j in range(k):
+        c = cols[:, :, j:j + 1]
+        cj = c.clamp(min=0).long()
+        plane.scatter_(2, cj, torch.where(c >= 0, vals[:, :, j:j + 1],
+                                          plane.gather(2, cj)))
+    return plane
+
+
+def crate_arcs(gen, b):
+    """A batch of the reference crate's config B on the card
+    (``benches/benchmark.rs:159-249``): 32 distinct uniform columns of
+    60,000 a person (a row with a repeat is drawn again), values
+    floor(700·Beta(3,3) + 300), Beta(3,3) the median of five uniforms;
+    float32 values, columns unsorted."""
+    n, m, k = CONFIG_B
+    cols = torch.randint(0, m, (b * n, k), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    while True:
+        s = cols.sort(dim=1).values
+        again = (s[:, 1:] == s[:, :-1]).any(dim=1).nonzero()[:, 0]
+        if again.numel() == 0:
+            break
+        cols[again] = torch.randint(0, m, (again.numel(), k), generator=gen,
+                                    device="cuda", dtype=torch.int32)
+    vals = torch.cat([torch.floor(700.0 * torch.rand(
+        (min(64, b - lo), n, k, 5), generator=gen, device="cuda",
+        dtype=torch.float64).median(dim=-1).values + 300.0)
+        for lo in range(0, b, 64)]).float()
+    return cols.view(b, n, k), vals
+
+
+def arcs_scipy_objective(cols, vals, m):
+    """``min_weight_full_bipartite_matching``'s optimum of one instance's
+    arcs (integer values: exact)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import min_weight_full_bipartite_matching
+
+    n, k = cols.shape
+    mat = csr_matrix((vals.reshape(-1).astype(np.float64),
+                      cols.reshape(-1).astype(np.int64),
+                      np.arange(0, n * k + 1, k)), shape=(n, m))
+    rows, picked = min_weight_full_bipartite_matching(mat)
+    return float(np.asarray(mat[rows, picked]).sum())
+
+
+def check_crate_solutions(sols, raw, m, per_batch=4):
+    """Every person assigned, the maps consistent, and ``per_batch``
+    instances of each batch at scipy's optimum."""
+    checked = 0
+    for sol, (cols, vals) in zip(sols, raw):
+        assert int(sol.num_unassigned.sum()) == 0, "unassigned persons"
+        p2o = sol.person_to_object
+        b, n = p2o.shape
+        back = np.take_along_axis(sol.object_to_person,
+                                  p2o.astype(np.int64), axis=1)
+        assert np.array_equal(back, np.broadcast_to(np.arange(n), p2o.shape))
+        c, v = cols.cpu().numpy(), vals.cpu().numpy()
+        for bi in range(0, b, b // per_batch):
+            assert sol.objective[bi] == arcs_scipy_objective(c[bi], v[bi], m)
+            checked += 1
+    return checked
+
+
+def phase_ksp_arcs(port, batch, ka, ksp):
+    """The arc Khosla kernel bit-equal to its plain version, and to the
+    plane kernel where both run; its route at the reference crate's
+    config B (2 x 256 x (2,000 x 60,000, 32 arcs), ε = 1/60,000, the
+    benchmark cell's shape) through ``stage_batch_sparse_device`` and
+    ``solve_batch_sparse_stream``; its times beside its bound, its plain
+    version, its float32 instance and the padded engine."""
+    n, m, k = CONFIG_B
+    checks = {}
+    # small cases in both value types: the twin against the plane's
+    # plain rounds, the kernel against the twin, the rows read, the
+    # round trace, a launch continued from another's state
+    cases = [(4, 32, 32, 6, 40), (4, 32, 32, 6, 3), (4, 48, 96, 40, 3),
+             (4, 64, 4096, 8, 3)]
+    small = 0
+    for seed, (b, sn, sm, sk, hi) in enumerate(cases):
+        cols, vals64, thr64 = arcs_small_case(SEED + seed, b, sn, sm, sk, hi)
+        for dtype, npt in ((torch.float32, np.float32),
+                           (torch.float64, np.float64)):
+            vals, thr, eps = vals64.to(dtype), thr64.to(dtype), npt(1 / 32)
+            plane = densify_arcs(cols, vals, sm)
+            for rounds in (1, 7, 5000):
+                rows = [torch.zeros(b, dtype=torch.int64, device="cuda")
+                        for _ in range(3)]
+                trace = ([torch.zeros((b, rounds, 3), dtype=torch.int32,
+                                      device="cuda") for _ in range(2)]
+                         if rounds < 5000 else [None, None])
+                plain = ksp.ksp_chunk_reference(
+                    plane, ksp.khosla_init(plane), eps, thr, rounds,
+                    act_rows=rows[0])
+                twin = ka.ksp_arcs_chunk_reference(
+                    cols, vals, ka.arcs_init(vals, sm), eps, thr, rounds,
+                    act_rows=rows[1], trace_rows=trace[0])
+                got = ka.ksp_arcs_chunk(
+                    cols, vals, ka.arcs_init(vals, sm), eps, thr, rounds,
+                    act_rows=rows[2], trace_rows=trace[1])
+                part = ka.ksp_arcs_chunk(cols, vals, ka.arcs_init(vals, sm),
+                                         eps, thr, 3)
+                part = ka.ksp_arcs_chunk(cols, vals, part, eps, thr, rounds)
+                whole = ka.ksp_arcs_chunk(cols, vals, ka.arcs_init(vals, sm),
+                                          eps, thr, rounds + 3)
+                bad = (arcs_states_differ(twin, plain)
+                       + arcs_states_differ(got, twin)
+                       + arcs_states_differ(part, whole))
+                assert not bad, ("arc kernel, small case", seed, dtype,
+                                 rounds, bad)
+                assert all(torch.equal(r, rows[0]) for r in rows[1:])
+                assert trace[0] is None or torch.equal(trace[0], trace[1])
+                small += 1
+    checks["small_cases"] = small
+    # the float32 stall at the crate's values and ε, which float64 ends
+    cols = torch.tensor([[[0, 1], [0, 2]]], dtype=torch.int32, device="cuda")
+    stall = {}
+    for dtype, npt in ((torch.float32, np.float32),
+                       (torch.float64, np.float64)):
+        vals = torch.tensor([[[-369.0, -408.0], [-336.0, -375.0]]],
+                            dtype=dtype, device="cuda")
+        thr = torch.tensor([1.5 * (72.0 + CRATE_EPS)], dtype=dtype,
+                           device="cuda")
+        got = ka.ksp_arcs_chunk(cols, vals, ka.arcs_init(vals, 3),
+                                npt(CRATE_EPS), thr, 500)
+        twin = ka.ksp_arcs_chunk_reference(cols, vals, ka.arcs_init(vals, 3),
+                                           npt(CRATE_EPS), thr, 500)
+        assert not arcs_states_differ(got, twin), ("stall", dtype)
+        stall[str(dtype)] = {"nits": int(got.nits), "p2o": got.p2o.tolist()}
+    assert stall["torch.float32"]["nits"] == 500
+    assert stall["torch.float64"]["p2o"] == [[0, 2]]
+    checks["stall"] = stall
+    # a size both kernels take: 64 x 128 x 8,192, 32 arcs, float32
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 300)
+    sb, sn, sm = 64, 128, 8192
+    cols = torch.rand((sb, sn, sm), generator=gen, device="cuda").topk(
+        32, dim=2).indices.to(torch.int32)
+    cols = cols[:, :, torch.randperm(32, generator=gen, device="cuda")]
+    vals = -torch.randint(300, 1000, (sb, sn, 32), generator=gen,
+                          device="cuda", dtype=torch.int32).float()
+    thr = (sm / 2.0) * (vals.amax(dim=(1, 2)) - vals.amin(dim=(1, 2))
+                        + 1.0 / sm)
+    eps = np.float32(1.0 / sm)
+    plane = densify_arcs(cols, vals, sm)
+    pinit, ainit = ksp.khosla_init(plane), ka.arcs_init(vals, sm)
+    pk = ksp.ksp_chunk(plane, pinit, eps, thr, 5000)
+    ak = ka.ksp_arcs_chunk(cols, vals, ainit, eps, thr, 5000)
+    tw = ka.ksp_arcs_chunk_reference(cols, vals, ainit, eps, thr, 5000)
+    bad = arcs_states_differ(ak, pk) + arcs_states_differ(ak, tw)
+    assert not bad, ("arc kernel against the plane kernel", bad)
+    checks["shared_size"] = {
+        "shape": [sb, sn, sm, 32], "nits_max": int(pk.nits.max()),
+        "plane_kernel_ms": event_ms(
+            lambda: ksp.ksp_chunk(plane, pinit, eps, thr, 5000), reps=5),
+        "arcs_kernel_ms": event_ms(
+            lambda: ka.ksp_arcs_chunk(cols, vals, ainit, eps, thr, 5000),
+            reps=5)}
+    del plane, pinit, pk, ak, tw
+
+    # the main path: two batches of config B made on the card, staged
+    # with no plane and streamed
+    raw = []
+    for i in range(2):
+        gen.manual_seed(SEED + 310 + i)
+        raw.append(crate_arcs(gen, 256))
+    routes = dict(batch.SPARSE_ROUTES)
+    stage_ms, staged = sync_ms(lambda: [
+        port.stage_batch_sparse_device(c, v, m, eps=CRATE_EPS)
+        for c, v in raw])
+    assert batch.SPARSE_ROUTES["arcs"] == routes["arcs"] + 2
+    assert all(st.values_nm is None and st.work_device.dtype == torch.float64
+               for st in staged)
+    plane_before = ksp.LAUNCHES
+    ka.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    first_ms, sols = sync_ms(
+        lambda: port.solve_batch_sparse_stream(staged, window=2))
+    launches = ka.LAUNCHES
+    assert launches > 0, "the arc route launched no arc kernel"
+    assert ksp.LAUNCHES == plane_before, "the plane kernel ran on the arcs"
+    # a caller that drops each call's results before the next, so the
+    # page-locked result blocks come back from the host allocator's
+    # cache; then one that keeps every call's results (a new block a
+    # call)
+    warm_ms, _ = sync_ms(lambda: len(
+        port.solve_batch_sparse_stream(staged, window=2)), reps=5)
+    held = []
+    held_ms, _ = sync_ms(lambda: held.append(
+        port.solve_batch_sparse_stream(staged, window=2)), reps=3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for s, s2 in zip(sols, held[-1]):
+        assert np.array_equal(s.person_to_object, s2.person_to_object)
+    del held
+    checked = check_crate_solutions(sols, raw, m)
+    nits = np.concatenate([s.nits for s in sols])
+    emit({"phase": "ksp_arcs_route", "config": "reference crate config B",
+          "batches": 2, "batch": 256, "n": n, "m": m, "k": k,
+          "eps": CRATE_EPS, "dtype": "float64", "window": 2,
+          "stage_ms": stage_ms, "first_call_ms": first_ms,
+          "warm_median_ms": warm_ms, "results_held_ms": held_ms,
+          "instances_per_s": 512 / (warm_ms / 1e3),
+          "nits_p50": float(np.median(nits)), "nits_max": int(nits.max()),
+          "ksp_arcs_launches": launches, "scipy_checked": checked,
+          "peak_device_gib": peak_gib, **checks})
+
+    # the kernel at the path's shape: one batch from the initial state
+    # (its launch of the route's budget), the twin bit-equal, the phase
+    # split and CTA timeline, the bound; float32 in the same call
+    st = staged[0]
+    cols, work, thr = st.columns_device, st.work_device, st.thresholds
+    eps = np.float64(st.eps_val)
+    b = work.shape[0]
+    budget = batch._SPARSE_KERNEL_BUDGET
+    s0 = ka.arcs_init(work, m)
+    act = torch.zeros(b, dtype=torch.int64, device="cuda")
+    cyc = torch.zeros(len(ksp.PHASES), dtype=torch.int64, device="cuda")
+    stamps = torch.zeros((b, 2), dtype=torch.int64, device="cuda")
+    got = ka.ksp_arcs_chunk(cols, work, s0, eps, thr, budget, act_rows=act,
+                            phase_cycles=cyc, stamps=stamps)
+    assert not bool(ksp_active(got).any()), "not done within the budget"
+    kernel_ms = event_ms(
+        lambda: ka.ksp_arcs_chunk(cols, work, s0, eps, thr, budget), reps=5)
+    first_round_ms = event_ms(
+        lambda: ka.ksp_arcs_chunk(cols, work, s0, eps, thr, 1), reps=5)
+    split = kernel_split(ksp.PHASES, cyc, stamps, got.nits)
+    plain_ms, want = sync_ms(lambda: ka.ksp_arcs_chunk_reference(
+        cols, work, s0, eps, thr, budget))
+    bad = arcs_states_differ(got, want)
+    assert not bad, ("arc kernel at the path's shape", bad)
+    err = float((got.prices - want.prices).abs().max())
+    elem = work.element_size()
+    # the arcs as stored read once; p2o, dropped, the prices of the
+    # objects won and nits written once
+    bytes_once = b * n * k * (4 + elem) + b * n * (4 + 1 + elem) + b * 4
+    ops = 2 * k * int(act.sum())          # a subtract and a max an arc
+    bound_bytes_ms = bytes_once / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = ops / F32_OPS_PER_S * 1e3
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    bound_by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
+    # float32 at the crate's ε: the instances it leaves stalled
+    w32, t32 = work.float(), thr.float()
+    s32 = ka.ksp_arcs_chunk(cols, w32, ka.arcs_init(w32, m),
+                            np.float32(CRATE_EPS), t32, 5000)
+    stalled = int(ksp_active(s32).any(dim=1).sum())
+    del s32, w32, t32
+    # the float32 instance where it serves: ε = 2^-12, which float32
+    # keeps here and which gives the exact optimum too; staged by the
+    # route (float32 arcs), beside the float64 instance on the same arcs
+    f32 = [port.stage_batch_sparse_device(c, v, m, eps=CRATE_EPS_F32)
+           for c, v in raw]
+    assert all(s.work_device.dtype == torch.float32 for s in f32)
+    f32_sols = port.solve_batch_sparse_stream(f32, window=2)
+    f32_checked = check_crate_solutions(f32_sols, raw, m, per_batch=2)
+    c32, w32, t32 = (f32[0].columns_device, f32[0].work_device,
+                     f32[0].thresholds)
+    i32 = ka.arcs_init(w32, m)
+    w64, t64 = w32.double(), t32.double()
+    i64 = ka.arcs_init(w64, m)
+    f32_ms = event_ms(lambda: ka.ksp_arcs_chunk(
+        c32, w32, i32, np.float32(CRATE_EPS_F32), t32, budget), reps=5)
+    f64_same_ms = event_ms(lambda: ka.ksp_arcs_chunk(
+        c32, w64, i64, np.float64(CRATE_EPS_F32), t64, budget), reps=5)
+    f32_state = ka.ksp_arcs_chunk(c32, w32, i32, np.float32(CRATE_EPS_F32),
+                                  t32, budget)
+    f32_twin = ka.ksp_arcs_chunk_reference(
+        c32, w32, i32, np.float32(CRATE_EPS_F32), t32, budget)
+    assert not arcs_states_differ(f32_state, f32_twin), "float32 crate batch"
+    del f32, f32_sols, w32, t32, i32, w64, t64, i64, f32_state, f32_twin
+    # the padded engine on the same batch (host layouts, then the plain
+    # gather rounds), 64 rounds at most
+    c_host = cols.cpu().numpy()
+    v_host = raw[0][1].cpu().numpy().astype(np.float64)
+    chunk_ms = []
+    real = batch._batch_chunk_sparse
+
+    def timed_chunk(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args)
+        end.record()
+        torch.cuda.synchronize()
+        chunk_ms.append(start.elapsed_time(end))
+        return out
+
+    batch._batch_chunk_sparse = timed_chunk
+    try:
+        padded_s, pad = wall_s(lambda: port.solve_batch_sparse(
+            c_host, v_host, m, eps=CRATE_EPS, dtype=np.float64,
+            engine="padded", max_rounds=budget))
+    finally:
+        batch._batch_chunk_sparse = real
+    # the host entry point on the same batch: engine="auto" takes the
+    # arcs (float64) and gives the stream's answer
+    routes = dict(batch.SPARSE_ROUTES)
+    before = ka.LAUNCHES
+    auto_ms, auto = sync_ms(lambda: port.solve_batch_sparse(
+        c_host, v_host, m, eps=CRATE_EPS))
+    assert batch.SPARSE_ROUTES["arcs"] == routes["arcs"] + 1
+    assert ka.LAUNCHES > before, "solve_batch_sparse launched no arc kernel"
+    for field in ("person_to_object", "object_to_person", "nits",
+                  "objective", "num_unassigned"):
+        assert np.array_equal(getattr(auto, field), getattr(sols[0], field)), \
+            ("solve_batch_sparse differs from the staged stream", field)
+    emit({"phase": "ksp_arcs_kernel_time", "shape": [b, n, m, k],
+          "dtype": "float64", "rounds_budget": budget,
+          "nits_p50": float(got.nits.float().median()),
+          "nits_max": int(got.nits.max()), "ms": kernel_ms,
+          "first_round_ms": first_round_ms, "plain_ms": plain_ms,
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "bytes_once": bytes_once, "act_rows": int(act.sum()), **split,
+          "float32_crate_eps_stalled_instances": stalled,
+          "float32_eps": CRATE_EPS_F32, "float32_ms": f32_ms,
+          "float64_same_eps_ms": f64_same_ms,
+          "float32_scipy_checked": f32_checked,
+          "padded_wall_s": padded_s, "padded_rounds_ms": sum(chunk_ms),
+          "padded_nits_max": int(pad.nits.max()),
+          "solve_batch_sparse_auto_ms": auto_ms,
+          "library_ms": None, "plain_bit_exact": True})
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err, "launches": launches,
+            "float32_ms": f32_ms}
 
 
 # ----------------------------------------------------------------------
@@ -2869,6 +3245,7 @@ def main() -> int:
     from sparse_linear_assignment_tpu_torch.ops import (
         dense_round_single as drs,
     )
+    from sparse_linear_assignment_tpu_torch.ops import ksparse_arcs as ka
     from sparse_linear_assignment_tpu_torch.ops import ksparse_kernel as ksp
     from sparse_linear_assignment_tpu_torch.ops.auction import forward_init
     from sparse_linear_assignment_tpu_torch.ops.fr_dense import fr_init
@@ -2881,6 +3258,7 @@ def main() -> int:
     fr_kernel._kernel_lib()
     fr_big._kernel_lib()
     ksp._kernel_lib()
+    ka._kernel_lib()
     dr._kernel_lib()
     drs._kernel_lib()
     build_s = time.perf_counter() - t0
@@ -3073,6 +3451,10 @@ def main() -> int:
     phase_sparse_host(port, batch, ksp, scipy_lsa)
     phase_sparse_infeasible(port)
 
+    # 9b. the arc route at the reference crate's config B, on the arc
+    # Khosla kernel
+    arcs = phase_ksp_arcs(port, batch, ka, ksp)
+
     # 10. the forward and Khosla engines and the plain-rounds FR route
     rcosts, reps_, dr_launches, rect_warm_ms, _ = phase_forward_rect(
         port, batch, dr, scipy_lsa)
@@ -3085,8 +3467,8 @@ def main() -> int:
 
     # 11. the reference-crate API and the single sparse device engines:
     # no kernel of the port on this path (the JAX package runs it as
-    # plain XLA); every phase reads the five kernels' counts (0)
-    mods = (fr_kernel, fr_big, ksp, dr, drs)
+    # plain XLA); every phase reads the six kernels' counts (0)
+    mods = (fr_kernel, fr_big, ksp, ka, dr, drs)
     phase_reference_api(port, mods, card)
     phase_khosla_headline(port, mods, card)
     phase_khosla_asym(port, mods, card)
@@ -3152,6 +3534,20 @@ def main() -> int:
         "bound_ms": kspt["bound_ms"],
         "bound_by": kspt["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "ksp_arcs_kernel",
+        "route": "cuda",
+        "source": "sparse_linear_assignment_tpu_torch/csrc/ksp_arcs_kernel.cu",
+        "replaces": None,
+        "launches": arcs["launches"],
+        "max_abs_err": arcs["max_abs_err"],
+        "checked_vs_plain": True,
+        "ms": arcs["ms"],
+        "plain_ms": arcs["plain_ms"],
+        "bound_ms": arcs["bound_ms"],
+        "bound_by": arcs["bound_by"],
+        "library_ms": None,
+        "float32_ms": arcs["float32_ms"],
     }, {
         "name": "dense_round_kernel",
         "route": "cuda",

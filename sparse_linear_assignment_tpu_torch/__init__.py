@@ -14,7 +14,8 @@ through the kernels' plain PyTorch versions when the caller passes
 - k-sparse instances through the Khosla auction on a densified plane:
   ``solve_batch_sparse``, ``stage_batch_sparse``,
   ``stage_batch_sparse_device``, ``solve_batch_sparse_stream``
-  (``csrc/ksp_kernel.cu``), or on the padded gather rounds
+  (``csrc/ksp_kernel.cu``; past its shared memory, on the arcs
+  themselves, ``csrc/ksp_arcs_kernel.cu``), or on the padded gather rounds
   (``solve_batch_sparse(engine="padded")``); ``generators`` makes
   seeded instances;
 - the reference crate's API for one sparse instance:

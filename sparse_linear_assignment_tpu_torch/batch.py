@@ -38,10 +38,20 @@ person-major plane ``[B, N, M']`` (``-inf`` at non-arcs), on the host
 with column compaction or on the device by scatter, and solved by
 forward-only Khosla rounds with the drop rule: float32 on the Khosla
 kernel (``ops/ksparse_kernel.py``), other float types on the plain
-rounds (``ops/auction.py``).  ``engine="padded"`` keeps each instance
-in the padded dual layout (``ops/padded.py``) and runs the gather
-rounds of ``ops/auction.py`` over the whole batch: plain PyTorch, as
-the JAX package's padded engine is plain XLA.
+rounds (``ops/auction.py``).  Where that kernel's shared memory cannot
+hold a plane's objects (``smem_bytes(N, M')`` above ``MAX_SMEM_BYTES``),
+``stage_batch_sparse_device`` and ``solve_batch_sparse(engine="auto")``
+build no plane: the arcs stay as they are and the same rounds run on
+the arc kernel (``ops/ksparse_arcs.py``; its plain version for other
+float types and on the CPU), bit-equal to the plane's rounds in the
+same type.  The same two entry points decide the precision before the
+route: where float32 cannot keep ε in a profit, the batch runs in
+float64 on the arc kernel, whatever its width.  ``SPARSE_ROUTES``
+counts the route each staged batch took.
+``engine="padded"`` keeps each instance in the padded dual layout
+(``ops/padded.py``) and runs the gather rounds of ``ops/auction.py``
+over the whole batch: plain PyTorch, as the JAX package's padded engine
+is plain XLA.
 
 Entry points take ``device=None``, meaning ``"cuda"``; with no CUDA
 device they raise.  ``device="cpu"`` runs the kernels' plain PyTorch
@@ -96,17 +106,26 @@ from .ops import fr_big
 from .ops.fr_big import fr_big_chunk
 from .ops.fr_dense import fr_init, fr_round
 from .ops.fr_kernel import fr_chunk
+from .ops.ksparse_arcs import (
+    arcs_init,
+    ksp_arcs_chunk,
+    ksp_arcs_chunk_reference,
+    resolves,
+)
 from .ops.ksparse_kernel import (
+    MAX_SMEM_BYTES,
     PLANE_ALIGN,
     khosla_init,
     ksp_chunk,
     ksp_chunk_reference,
+    smem_bytes,
 )
 from .solution import (UNASSIGNED, convert_indices, o2p_from_p2o,
                        o2p_from_p2o_device)
 from .utils.trace import (
     FINISH_SPAN,
     SOLVE_BATCH_SPAN,
+    STAGE_SPAN,
     WAIT_SPAN,
     span,
     trace_host,
@@ -165,7 +184,16 @@ class BatchSolution:
 
     ``person_to_object[b, i]`` / ``object_to_person[b, j]`` use the
     ``UNASSIGNED`` sentinel; ``objective`` is in original cost units
-    (float64 accumulation)."""
+    (float64 accumulation).
+
+    From a card, ``solve_batch`` and the sparse arc route return
+    ``person_to_object``, ``object_to_person`` and ``num_unassigned`` as
+    views of one page-locked host block (:func:`_read_matching`), which
+    PyTorch's caching host allocator keeps while any of them lives and
+    reuses after: a caller that keeps many results holds that much
+    memory the system cannot swap (B·(N + M + 1)·4 bytes a result: 63 MB
+    for 256 instances of 2,000 x 60,000).  ``np.array(...)`` copies one
+    into pageable memory."""
 
     person_to_object: np.ndarray  # int32 [B, N]
     object_to_person: np.ndarray  # int32 [B, M]
@@ -463,12 +491,22 @@ def _read_matching(p2o_dev: torch.Tensor, m: int):
     (``o2p_from_p2o_device``, which rebuilds the map whatever the rounds
     left in theirs) and read back in one int32 transfer: ``(p2o [B, N],
     o2p [B, M], num_unassigned [B])``, C-contiguous views of one host
-    array."""
+    array.  From a card the array is page-locked, from PyTorch's caching
+    host allocator: a pageable one past glibc's mmap threshold (32 MiB
+    where the benchmark pins it; a 256 x 60,000 batch's maps are 63 MB)
+    is mapped afresh and faulted in page by page on every call.  The
+    block stays page-locked while the caller holds any of the views
+    (:class:`BatchSolution`), and returns to the allocator's cache, not
+    to the system, after."""
     b, n = p2o_dev.shape
     o2p, num_unassigned = o2p_from_p2o_device(p2o_dev, m)
-    flat = torch.cat(
-        [p2o_dev.reshape(-1), o2p.reshape(-1), num_unassigned]
-    ).cpu().numpy()
+    packed = torch.cat(
+        [p2o_dev.reshape(-1), o2p.reshape(-1), num_unassigned])
+    host = packed
+    if packed.is_cuda:
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed)
+    flat = host.numpy()
     return (flat[:b * n].reshape(b, n), flat[b * n:b * (n + m)].reshape(b, m),
             flat[b * (n + m):])
 
@@ -1110,9 +1148,10 @@ def linear_sum_assignment(cost_matrix, maximize: bool = False,
 # Batched SPARSE mode (k-sparse instances, Khosla auction)
 # ----------------------------------------------------------------------
 
-#: round budget of one launch of the Khosla kernel: most instances of
-#: the target class (m = 4-8n) need far fewer rounds, an instance leaves
-#: the kernel when it is done, so unused budget costs nothing
+#: round budget of one launch of either Khosla kernel (the plane's or the
+#: arcs'): most instances of the target class (m = 4-8n) need far fewer
+#: rounds, an instance leaves the kernel when it is done, so unused
+#: budget costs nothing
 _SPARSE_KERNEL_BUDGET = 64
 
 #: ``engine="auto"`` takes the densified route while the plane is at
@@ -1123,6 +1162,17 @@ _SPARSE_DENSE_MAX_SHARE = 3 / 8
 
 #: the same limit where the caller asked for the CPU (``device="cpu"``)
 _SPARSE_DENSE_MAX_BYTES_CPU = 4 << 30
+
+#: staged batches by route since import: ``"plane"`` (the densified
+#: plane), ``"arcs"`` (the arc kernel, no plane), ``"padded"`` (the
+#: padded gather rounds of ``solve_batch_sparse``)
+SPARSE_ROUTES = {"plane": 0, "arcs": 0, "padded": 0}
+
+
+def _plane_fits(n: int, width: int) -> bool:
+    """Whether the plane kernel's shared memory holds an ``n``-person
+    instance ``width`` objects wide; else the arcs take the batch."""
+    return smem_bytes(n, width) <= MAX_SMEM_BYTES
 
 
 def _sparse_dense_max_bytes(dev: torch.device) -> int:
@@ -1164,7 +1214,8 @@ def _sparse_column_map(columns, arc_mask, num_cols: int):
     return used_cols, counts, arc_local, keys // num_cols
 
 
-def _sparse_densify(columns, arc_mask, work, num_cols: int, dtype):
+def _sparse_densify(columns, arc_mask, work, num_cols: int, dtype,
+                    col_map=None):
     """Compact each instance's referenced columns into a local dense
     object space and scatter the arc values into a person-major
     ``[B, N, M']`` plane (``-inf`` at non-arcs).  Densifying turns every
@@ -1173,11 +1224,13 @@ def _sparse_densify(columns, arc_mask, work, num_cols: int, dtype):
     bounds that by the columns an instance really references.  A person
     that lists one column twice keeps the later slot.
 
+    ``col_map``: :func:`_sparse_column_map`'s result, if it was built.
+
     Returns ``(plane, used_cols [B, M'] int64, used_count [B])``."""
     b, n, _ = columns.shape
-    used_cols, counts, arc_local, owner = _sparse_column_map(
-        columns, arc_mask, num_cols
-    )
+    used_cols, counts, arc_local, owner = (
+        col_map if col_map is not None
+        else _sparse_column_map(columns, arc_mask, num_cols))
     persons = np.broadcast_to(
         np.arange(n, dtype=np.int64)[None, :, None], columns.shape
     )[arc_mask]
@@ -1222,23 +1275,32 @@ def _sparse_stage_scatter(columns_device, values_device, m: int,
         cj = columns_device[:, :, j:j + 1].clamp(min=0).long()
         wj = torch.where(mj, work[:, :, j:j + 1], plane.gather(2, cj))
         plane.scatter_(2, cj, wj)
+    return (plane, *_sparse_value_range(mask, work))
+
+
+def _sparse_value_range(mask, work):
+    """Each instance's smallest and largest sign-adjusted arc value
+    ``(w_lo [B], w_hi [B])``, for the drop thresholds."""
     w_lo = torch.where(mask, work, np.inf).amin(dim=(1, 2))
     w_hi = torch.where(mask, work, -np.inf).amax(dim=(1, 2))
-    return plane, w_lo, w_hi
+    return w_lo, w_hi
 
 
 class _SparseStaged(NamedTuple):
-    """A densified batch-sparse problem staged on its device: stage
-    once, solve many.
+    """A batch-sparse problem staged on its device: stage once, solve
+    many.
 
     Two flavors: host-staged (``columns``, ``arc_mask`` and ``values64``
     on the host, compacted columns, the objective evaluated on the host
     in float64) and device-resident (``device_mode``, built by
     :func:`stage_batch_sparse_device` on the device from the arc arrays;
     the objective is summed in float64 on the device, and the column map
-    is the identity unless the staging compacted)."""
+    is the identity unless the staging compacted).  Two routes: the
+    densified plane ``values_nm``, or, where the plane kernel cannot
+    take it, no plane (``values_nm`` None) and the sign-adjusted arcs
+    ``work_device`` over ``columns_device`` for the arc kernel."""
 
-    values_nm: torch.Tensor  # [B, N, M'] person-major plane
+    values_nm: Optional[torch.Tensor]  # [B, N, M'] person-major plane
     used_cols: Optional[np.ndarray]  # [B, M'] local -> original id
     thresholds: torch.Tensor  # [B], the plane's dtype and device
     columns: Optional[np.ndarray]  # [B, N, K] host arcs
@@ -1249,6 +1311,15 @@ class _SparseStaged(NamedTuple):
     device_mode: bool = False
     columns_device: Optional[torch.Tensor] = None  # [B, N, K] int32
     values_device: Optional[torch.Tensor] = None  # [B, N, K]
+    work_device: Optional[torch.Tensor] = None  # [B, N, K], the arc route
+
+    @property
+    def width(self) -> int:
+        """The staged object space's width: the plane's, or the arc
+        route's price vector (compacted, or the original ``m``)."""
+        if self.values_nm is not None:
+            return self.values_nm.shape[2]
+        return self.m if self.used_cols is None else self.used_cols.shape[1]
 
 
 def stage_batch_sparse_device(
@@ -1266,8 +1337,16 @@ def stage_batch_sparse_device(
     device) or host arrays (copied to ``device``, ``None`` meaning the
     card).  No host densify and no plane-sized copy to the device: the
     plane is scattered on the device and the objective is evaluated
-    there.  Any ``N <= num_cols`` the Khosla kernel's shared memory takes
-    (``ops/ksparse_kernel.py``).
+    there.  Any ``N <= num_cols``: where the plane kernel's shared memory
+    cannot hold the plane's objects (``ops/ksparse_kernel.py``:
+    ``smem_bytes(N, width)`` above ``MAX_SMEM_BYTES``), no plane is built
+    and the arcs stay on the device for the arc kernel
+    (``ops/ksparse_arcs.py``), which keeps its per-object state in device
+    memory; the results are the same.  Where float32 cannot keep ``eps``
+    in a profit (``ksparse_arcs.resolves``: values near 1,000 with
+    ``eps = 1/60,000``), float32 rounds can trade one object between two
+    persons forever: such a batch runs in float64 on the arc kernel at
+    any width.
 
     A person with no arc raises ``ValueError``, as on the host path; so
     does a column id outside ``[0, num_cols)``.
@@ -1276,62 +1355,82 @@ def stage_batch_sparse_device(
     scatter (a host-side remap; needs host column arrays).  It narrows
     the plane to the columns the batch really uses.  The drop
     thresholds always use the original ``num_cols``."""
-    b, n, k = columns_device.shape
-    m = int(num_cols)
-    if n > m:
-        raise ValueError("num_rows must be <= num_cols")
-    eps_val = float(eps) if eps is not None else 1.0 / m
-    used_cols = None
-    mp = m
-    if compact:
-        if not isinstance(columns_device, np.ndarray):
-            raise ValueError(
-                "compact=True needs host column arrays (the remap runs "
-                "on the host)"
+    with span(STAGE_SPAN):
+        b, n, k = columns_device.shape
+        m = int(num_cols)
+        if n > m:
+            raise ValueError("num_rows must be <= num_cols")
+        eps_val = float(eps) if eps is not None else 1.0 / m
+        used_cols = None
+        mp = m
+        if compact:
+            if not isinstance(columns_device, np.ndarray):
+                raise ValueError(
+                    "compact=True needs host column arrays (the remap runs "
+                    "on the host)"
+                )
+            columns_device, used_cols, mp = _sparse_remap_host(
+                columns_device, m
             )
-        columns_device, used_cols, mp = _sparse_remap_host(
-            columns_device, m
+        if isinstance(columns_device, torch.Tensor):
+            dev = columns_device.device
+        elif isinstance(values_device, torch.Tensor):
+            dev = values_device.device
+        else:
+            dev = resolve_device(device)
+        cols = torch.as_tensor(columns_device).to(dev, torch.int32)
+        vals = torch.as_tensor(values_device).to(dev, torch.float32)
+        mask = cols >= 0
+        # the checks and the largest |value|, in one readback
+        arcless, out_of_range, absmax = torch.stack([
+            ~mask.any(dim=2).all(), cols.max() >= mp,
+            torch.where(mask, vals.abs(), 0.0).amax(),
+        ]).tolist()
+        if arcless:
+            raise ValueError("every person needs at least one arc")
+        if out_of_range:
+            raise ValueError(f"column ids must be below num_cols ({m})")
+        plane = work = None
+        # the precision first: float32 that cannot keep eps in a profit
+        # runs in float64 on the arcs, whatever the plane's width
+        dtype = torch.float32 if resolves(eps_val, absmax) else torch.float64
+        if dtype == torch.float32 and _plane_fits(n, mp):
+            SPARSE_ROUTES["plane"] += 1
+            plane, w_lo, w_hi = _sparse_stage_scatter(cols, vals, mp,
+                                                      not maximize)
+        else:
+            SPARSE_ROUTES["arcs"] += 1
+            work = vals.to(dtype) if maximize else -vals.to(dtype)
+            w_lo, w_hi = _sparse_value_range(mask, work)
+        # drop-rule factor from the original object count, in float32 on
+        # the device as the JAX package computes it (float64 where the
+        # arcs run in float64)
+        thresholds = (m / 2.0) * (
+            w_hi - w_lo + torch.tensor(eps_val, dtype=dtype, device=dev)
         )
-    if isinstance(columns_device, torch.Tensor):
-        dev = columns_device.device
-    elif isinstance(values_device, torch.Tensor):
-        dev = values_device.device
-    else:
-        dev = resolve_device(device)
-    cols = torch.as_tensor(columns_device).to(dev, torch.int32)
-    vals = torch.as_tensor(values_device).to(dev, torch.float32)
-    arcless, out_of_range = torch.stack([
-        ~(cols >= 0).any(dim=2).all(), cols.max() >= mp,
-    ]).tolist()
-    if arcless:
-        raise ValueError("every person needs at least one arc")
-    if out_of_range:
-        raise ValueError(f"column ids must be below num_cols ({m})")
-    plane, w_lo, w_hi = _sparse_stage_scatter(cols, vals, mp, not maximize)
-    # drop-rule factor from the original object count, in float32 on the
-    # device as the JAX package computes it
-    thresholds = (m / 2.0) * (
-        w_hi - w_lo + torch.tensor(eps_val, dtype=torch.float32, device=dev)
-    )
-    return _SparseStaged(
-        values_nm=plane,
-        used_cols=used_cols,
-        thresholds=thresholds,
-        columns=None,
-        arc_mask=None,
-        values64=None,
-        m=m,
-        eps_val=eps_val,
-        device_mode=True,
-        columns_device=cols,
-        values_device=vals,
-    )
+        return _SparseStaged(
+            values_nm=plane,
+            used_cols=used_cols,
+            thresholds=thresholds,
+            columns=None,
+            arc_mask=None,
+            values64=None,
+            m=m,
+            eps_val=eps_val,
+            device_mode=True,
+            columns_device=cols,
+            values_device=vals,
+            work_device=work,
+        )
 
 
 def _sparse_stage_dense(
     columns, values64, arc_mask, work, m, eps_val, thresholds, dtype, dev,
+    col_map=None,
 ) -> _SparseStaged:
-    plane, used_cols, _ = _sparse_densify(columns, arc_mask, work, m, dtype)
+    SPARSE_ROUTES["plane"] += 1
+    plane, used_cols, _ = _sparse_densify(columns, arc_mask, work, m, dtype,
+                                          col_map)
     return _SparseStaged(
         values_nm=torch.from_numpy(plane).to(dev),
         used_cols=used_cols,
@@ -1346,26 +1445,65 @@ def _sparse_stage_dense(
     )
 
 
+def _sparse_stage_arcs(
+    columns, values64, arc_mask, work, m, eps_val, thresholds, dtype, dev,
+) -> _SparseStaged:
+    """The host arrays' arc route: the arcs copied to ``dev`` as they
+    are (original column ids, ``work`` in ``dtype``), no plane; the
+    objective stays the host's, from ``values64``."""
+    SPARSE_ROUTES["arcs"] += 1
+    return _SparseStaged(
+        values_nm=None,
+        used_cols=None,
+        thresholds=torch.from_numpy(
+            thresholds.astype(np.dtype(dtype))
+        ).to(dev),
+        columns=columns,
+        arc_mask=arc_mask,
+        values64=values64,
+        m=m,
+        eps_val=eps_val,
+        columns_device=torch.from_numpy(
+            columns.astype(np.int32, copy=False)).to(dev),
+        work_device=torch.from_numpy(work.astype(np.dtype(dtype))).to(dev),
+    )
+
+
 def _sparse_dispatch(st: _SparseStaged, chunk: int, stream=None) -> dict:
     """Launch the first (usually only) chunk of a staged solve without
     blocking; returns the context for :func:`_sparse_finish`.  Split so
     that the stream mode can overlap one batch's readback with the next
-    batch's rounds.  A float32 plane runs on the Khosla kernel (its
-    plain version on CPU tensors), ``_SPARSE_KERNEL_BUDGET`` rounds per
-    launch; any other float type on the plain rounds, ``chunk`` rounds
-    first.  ``stream``: the CUDA stream this batch runs on (``None``:
-    the current one)."""
-    values = st.values_nm
+    batch's rounds.  float32 runs on the Khosla kernel of its route (the
+    plane's or the arcs', which also takes float64; their plain versions
+    on CPU tensors), ``_SPARSE_KERNEL_BUDGET`` rounds per launch; any
+    other float type on the plain rounds, ``chunk`` rounds first.
+    ``stream``: the CUDA stream this batch runs on (``None``: the
+    current one)."""
+    arcs = st.values_nm is None
+    values = st.work_device if arcs else st.values_nm
     eps_s = _numpy_dtype(values.dtype).type(st.eps_val)
-    kernel = values.dtype == torch.float32
-    run = ksp_chunk if kernel else ksp_chunk_reference
+    kernel = values.dtype == torch.float32 or (
+        arcs and values.dtype == torch.float64)
+    if arcs:
+        chunk_fn = ksp_arcs_chunk if kernel else ksp_arcs_chunk_reference
+
+        def run(states, rounds):
+            return chunk_fn(st.columns_device, values, states, eps_s,
+                            st.thresholds, rounds)
+    else:
+        chunk_fn = ksp_chunk if kernel else ksp_chunk_reference
+
+        def run(states, rounds):
+            return chunk_fn(values, states, eps_s, st.thresholds, rounds)
     cur = _SPARSE_KERNEL_BUDGET if kernel else chunk
     if stream is not None:
         stream.wait_stream(torch.cuda.current_stream(values.device))
     with _on_stream(stream):
-        states = run(values, khosla_init(values), eps_s, st.thresholds, cur)
-    return dict(states=states, rounds=cur, chunk=cur, eps_s=eps_s,
-                kernel=kernel, run=run, stream=stream)
+        init = (arcs_init(values, st.width) if arcs
+                else khosla_init(values))
+        states = run(init, cur)
+    return dict(states=states, rounds=cur, chunk=cur, kernel=kernel,
+                run=run, stream=stream)
 
 
 def _sparse_device_objective(st: _SparseStaged, p2o) -> torch.Tensor:
@@ -1387,45 +1525,82 @@ def _sparse_finish(st: _SparseStaged, ctx: dict,
     with _on_stream(ctx["stream"]):
         while True:
             active = (states.p2o == UNASSIGNED) & ~states.dropped
-            undone = bool(active.any())  # the blocking readback
+            with span(WAIT_SPAN):
+                undone = bool(active.any())  # the blocking readback
             trace_host("sparse: rounds={} undone={}", rounds, undone)
             if not undone or rounds >= max_rounds:
                 break
             cur = (_SPARSE_KERNEL_BUDGET if ctx["kernel"]
                    else min(1024, cur * 2))
-            states = ctx["run"](st.values_nm, states, ctx["eps_s"],
-                                st.thresholds, cur)
+            states = ctx["run"](states, cur)
             rounds += cur
-        p2o_loc = states.p2o.cpu().numpy()
-        nits = states.nits.cpu().numpy()
-        if st.device_mode:
-            objective = _sparse_device_objective(st, states.p2o)
-            objective = objective.cpu().numpy()
+        if st.values_nm is None:
+            return _sparse_finish_arcs(st, states)
+    with span(FINISH_SPAN):
+        with _on_stream(ctx["stream"]):
+            p2o_loc = states.p2o.cpu().numpy()
+            nits = states.nits.cpu().numpy()
+            if st.device_mode:
+                objective = _sparse_device_objective(st, states.p2o)
+                objective = objective.cpu().numpy()
+        assigned = p2o_loc != UNASSIGNED
+        if st.used_cols is not None:
+            p2o = np.where(
+                assigned,
+                np.take_along_axis(
+                    st.used_cols,
+                    np.where(assigned, p2o_loc, 0).astype(np.int64),
+                    axis=1,
+                ),
+                np.int64(UNASSIGNED),
+            ).astype(np.int32)
+        else:
+            p2o = p2o_loc
+        if not st.device_mode:
+            match = st.arc_mask & (st.columns == p2o[:, :, None])
+            objective = np.where(match, st.values64, 0.0).sum(axis=(1, 2))
+        return BatchSolution(
+            person_to_object=p2o,
+            object_to_person=o2p_from_p2o(p2o, st.m),
+            num_unassigned=(~assigned).sum(axis=1).astype(np.int32),
+            objective=objective,
+            eps=np.full(p2o.shape[0], st.eps_val),
+            nits=nits,
+        )
 
-    assigned = p2o_loc != UNASSIGNED
-    if st.used_cols is not None:
-        p2o = np.where(
-            assigned,
-            np.take_along_axis(
-                st.used_cols,
-                np.where(assigned, p2o_loc, 0).astype(np.int64),
-                axis=1,
-            ),
-            np.int64(UNASSIGNED),
-        ).astype(np.int32)
-    else:
-        p2o = p2o_loc
-    if not st.device_mode:
-        match = st.arc_mask & (st.columns == p2o[:, :, None])
-        objective = np.where(match, st.values64, 0.0).sum(axis=(1, 2))
-    return BatchSolution(
-        person_to_object=p2o,
-        object_to_person=o2p_from_p2o(p2o, st.m),
-        num_unassigned=(~assigned).sum(axis=1).astype(np.int32),
-        objective=objective,
-        eps=np.full(p2o.shape[0], st.eps_val),
-        nits=nits,
-    )
+
+def _sparse_finish_arcs(st: _SparseStaged, states) -> BatchSolution:
+    """The arc route's finish, on the current stream: local column ids
+    mapped back and the device objective on the device, then the
+    matching, its object-to-person map and its counts in one readback
+    (:func:`_read_matching`, as :func:`solve_batch` finishes)."""
+    with span(FINISH_SPAN):
+        p2o_dev = states.p2o
+        objective = (_sparse_device_objective(st, p2o_dev)
+                     if st.device_mode else None)
+        if st.used_cols is not None:
+            used = torch.from_numpy(st.used_cols).to(p2o_dev.device)
+            assigned = p2o_dev != UNASSIGNED
+            p2o_dev = torch.where(
+                assigned,
+                used.gather(1, torch.where(assigned, p2o_dev, 0).long()),
+                UNASSIGNED,
+            ).to(torch.int32)
+        p2o, o2p, num_unassigned = _read_matching(p2o_dev, st.m)
+        nits = states.nits.cpu().numpy()
+        if objective is None:
+            match = st.arc_mask & (st.columns == p2o[:, :, None])
+            objective = np.where(match, st.values64, 0.0).sum(axis=(1, 2))
+        else:
+            objective = objective.cpu().numpy()
+        return BatchSolution(
+            person_to_object=p2o,
+            object_to_person=o2p,
+            num_unassigned=num_unassigned,
+            objective=objective,
+            eps=np.full(p2o.shape[0], st.eps_val),
+            nits=nits,
+        )
 
 
 def _sparse_solve_staged(st: _SparseStaged, max_rounds: int,
@@ -1474,10 +1649,11 @@ def stage_batch_sparse(
     streamed solving: densify and copy once, then
     :func:`solve_batch_sparse_stream` (or repeated staged solves) pay no
     staging per solve.  Arguments as :func:`solve_batch_sparse`."""
-    return _sparse_stage_dense(
-        *_sparse_host_problem(columns, values, num_cols, maximize, eps),
-        dtype, resolve_device(device),
-    )
+    with span(STAGE_SPAN):
+        return _sparse_stage_dense(
+            *_sparse_host_problem(columns, values, num_cols, maximize, eps),
+            dtype, resolve_device(device),
+        )
 
 
 def solve_batch_sparse_stream(
@@ -1497,7 +1673,7 @@ def solve_batch_sparse_stream(
     results = []
     pending: deque = deque()
     for k, st in enumerate(staged):
-        stream = _window_streams(st.values_nm.device, window)[k % window]
+        stream = _window_streams(st.thresholds.device, window)[k % window]
         pending.append((st, _sparse_dispatch(st, chunk, stream)))
         while len(pending) >= window:
             s, ctx = pending.popleft()
@@ -1506,6 +1682,32 @@ def solve_batch_sparse_stream(
         s, ctx = pending.popleft()
         results.append(_sparse_finish(s, ctx, max_rounds))
     return results
+
+
+def _sparse_auto_route(problem, dtype, dev):
+    """``engine="auto"``'s choice for a host problem: ``(engine, dtype,
+    col_map)``.  The precision first: float32 that cannot keep ``eps``
+    in a profit runs in float64 on the arcs.  Then the arcs where the
+    plane kernel's shared memory cannot hold the compacted plane, else
+    dense when the densified plane fits, padded otherwise.  ``col_map``
+    is the column map if it was built to measure the width."""
+    columns, _, arc_mask, work, m, eps_val, _ = problem
+    b, n, k = columns.shape
+    if (np.dtype(dtype) == np.float32
+            and not resolves(eps_val, np.abs(work[arc_mask]).max())):
+        return "arcs", np.float64, None
+    # the compacted width at most, min(m, n*k) columns padded as staged;
+    # only past the plane kernel's limit is it counted
+    width = _plane_width(min(m, n * k))
+    col_map = None
+    if not _plane_fits(n, width):
+        col_map = _sparse_column_map(columns, arc_mask, m)
+        if not _plane_fits(n, col_map[0].shape[1]):
+            return "arcs", dtype, None
+    # the densified size at most, without building the plane
+    est = b * width * n * np.dtype(dtype).itemsize
+    return ("dense" if est <= _sparse_dense_max_bytes(dev) else "padded",
+            dtype, col_map)
 
 
 def solve_batch_sparse(
@@ -1533,27 +1735,35 @@ def solve_batch_sparse(
     float32 on the Khosla kernel, other float types on the plain rounds.
     ``"padded"`` keeps every instance in the padded dual layout and runs
     the gather rounds (:func:`_solve_batch_sparse_padded`), whose memory
-    follows the arcs rather than the columns.  ``"auto"`` picks dense
-    when the densified plane fits (:func:`_sparse_dense_max_bytes`),
-    padded otherwise; unlike the JAX package it does so on
-    ``device="cpu"`` too."""
-    problem = _sparse_host_problem(columns, values, num_cols, maximize, eps)
-    columns = problem[0]
-    b, n, k = columns.shape
-    m = problem[4]
-    dev = resolve_device(device)
+    follows the arcs rather than the columns.  ``"auto"``
+    (:func:`_sparse_auto_route`) takes the arc route, no plane and the
+    same rounds on the arc kernel (``ops/ksparse_arcs.py``), where
+    ``dtype`` is float32 and float32 cannot keep ``eps`` in a profit
+    (the batch then runs in float64, whatever its width: float32 rounds
+    can trade one object between two persons forever) or where the
+    plane kernel's shared memory cannot hold the compacted plane
+    (:func:`_plane_fits`); else dense when the densified plane fits
+    (:func:`_sparse_dense_max_bytes`), padded otherwise; unlike the JAX
+    package it does so on ``device="cpu"`` too.  ``"dense"``,
+    ``"padded"`` and :func:`stage_batch_sparse` keep ``dtype`` as
+    given."""
     if engine not in ("auto", "dense", "padded"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "auto":
-        # the densified size at most, without building the plane: an
-        # instance uses at most min(m, n*k) columns, padded as staged
-        est = (b * _plane_width(min(m, n * k)) * n
-               * np.dtype(dtype).itemsize)
-        engine = "dense" if est <= _sparse_dense_max_bytes(dev) else "padded"
+    with span(STAGE_SPAN):
+        problem = _sparse_host_problem(columns, values, num_cols, maximize,
+                                       eps)
+        dev = resolve_device(device)
+        col_map = None
+        if engine == "auto":
+            engine, dtype, col_map = _sparse_auto_route(problem, dtype, dev)
+        if engine == "arcs":
+            st = _sparse_stage_arcs(*problem, dtype, dev)
+        elif engine == "dense":
+            st = _sparse_stage_dense(*problem, dtype, dev, col_map)
     if engine == "padded":
+        SPARSE_ROUTES["padded"] += 1
         return _solve_batch_sparse_padded(*problem, dtype, max_rounds,
                                           chunk, dev)
-    st = _sparse_stage_dense(*problem, dtype, dev)
     return _sparse_solve_staged(st, max_rounds, chunk)
 
 

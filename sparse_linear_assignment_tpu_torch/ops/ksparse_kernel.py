@@ -49,7 +49,13 @@ tracing on (``SLAP_TPU_DEBUG``) or ``trace_rows`` given, each CTA's
 thread 0 logs one row a round (``ops/round_log.py``).  Limits:
 float32 values; ``M'`` a multiple of 4 (16-byte rows); ``12 M' + 17 N``
 bytes of shared memory within ``MAX_SMEM_BYTES`` (an instance of 128
-persons may have up to about 19,000 objects).  The staging code pads the
+persons may have up to about 19,000 objects).  Past that limit the
+staging entry points (``stage_batch_sparse_device``,
+``solve_batch_sparse(engine="auto")``) build no plane and take the arc
+kernel (``ops/ksparse_arcs.py``), which keeps the per-object state in
+device memory and gives the same rounds; so do batches where float32
+cannot keep ``eps`` in a profit, in float64.  This kernel serves the
+float32 instances whose plane fits.  The staging code pads the
 plane width to a multiple of ``PLANE_ALIGN`` values so that every row
 starts on a 128-byte line.  ``p2o`` must be a matching (no object owned
 twice), as every state of the rounds is.

@@ -21,9 +21,10 @@ import torch
 #: device operations; each is read by a metric of the benchmark
 SOLVE_BATCH_SPAN = "slap.solve_batch"  # the whole of ``solve_batch``
 WAIT_SPAN = "slap.wait"  # a solver driver's blocking progress readback
-FINISH_SPAN = "slap.finish"  # ``solve_batch`` after its driver
+FINISH_SPAN = "slap.finish"  # a batch solve after its driver
 INVERT_SPAN = "slap.invert"  # ``solution``'s two inversions
-SPANS = (SOLVE_BATCH_SPAN, WAIT_SPAN, FINISH_SPAN, INVERT_SPAN)
+STAGE_SPAN = "slap.stage"  # the sparse entry points' staging
+SPANS = (SOLVE_BATCH_SPAN, WAIT_SPAN, FINISH_SPAN, INVERT_SPAN, STAGE_SPAN)
 
 _NO_SPAN = contextlib.nullcontext()
 

@@ -393,3 +393,179 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port.stage_batch_sparse_device(columns, values.astype(np.float32),
                                        32)
+
+
+# ----------------------------------------------------------------------
+# the arc route: past the plane kernel's shared memory, no plane
+# ----------------------------------------------------------------------
+def narrow_arcs(seed, b, n, m, k, span, hi):
+    """Arcs over ``m`` objects whose columns lie in the first ``span``,
+    so that persons compete while the uncompacted plane is ``m`` wide."""
+    rng = np.random.default_rng(seed)
+    columns = np.stack([
+        np.stack([rng.choice(span, size=k, replace=False) for _ in range(n)])
+        for _ in range(b)
+    ]).astype(np.int32)
+    return columns, rng.integers(1, hi, size=(b, n, k)).astype(np.float64)
+
+
+@pytest.mark.parametrize("maximize", [False, True])
+def test_device_staging_past_the_plane_limit_takes_the_arcs(maximize):
+    """2 x 128 x 19,200, 8 arcs: the plane would need 232,576 bytes of
+    shared memory, past the kernel's 232,448.  The staging builds no
+    plane, the stream solves on the arcs, bit-equal to JAX's staged
+    stream (its kernel in interpret mode, on the plane) and optimal; a
+    plane batch streams beside it."""
+    b, n, m, k = 2, 128, 19_200, 8
+    columns, values = narrow_arcs(60, b, n, m, k, 320, 60)
+    small = make_arcs(61, 3, 16, 128, 4, hi=60)
+    kw = dict(maximize=maximize, eps=0.5 / n)
+    before = dict(tbatch.SPARSE_ROUTES)
+    st = port.stage_batch_sparse_device(columns, values.astype(np.float32),
+                                        m, device="cpu", **kw)
+    st_plane = port.stage_batch_sparse_device(
+        small[0], small[1].astype(np.float32), 128, device="cpu", **kw)
+    assert st.values_nm is None and st.work_device.shape == (b, n, k)
+    assert st_plane.values_nm is not None
+    assert tbatch.SPARSE_ROUTES["arcs"] == before["arcs"] + 1
+    assert tbatch.SPARSE_ROUTES["plane"] == before["plane"] + 1
+    got, got_plane = port.solve_batch_sparse_stream([st, st_plane],
+                                                    window=2)
+
+    def jax_solve():
+        return jbatch.solve_batch_sparse_stream([
+            jbatch.stage_batch_sparse_device(
+                jnp.asarray(c), jnp.asarray(v, jnp.float32), mm, **kw)
+            for c, v, mm in ((columns, values, m), (*small, 128))],
+            window=2)
+
+    want, want_plane = jax_kernel_route(jax_solve)
+    np.testing.assert_array_equal(st.thresholds.numpy(),
+                                  np.asarray(jbatch.stage_batch_sparse_device(
+                                      jnp.asarray(columns),
+                                      jnp.asarray(values, jnp.float32), m,
+                                      **kw).thresholds))
+    assert_same_solution(got, want)
+    np.testing.assert_array_equal(got.objective, want.objective)
+    assert_same_solution(got_plane, want_plane)
+    assert got.num_unassigned.sum() == 0 and got.nits.max() > 2
+    for bi in range(b):
+        assert got.objective[bi] == scipy_objective(
+            columns[bi], values[bi], m, maximize)
+
+
+def test_solve_batch_sparse_past_the_plane_limit_takes_the_arcs():
+    """2 x 128 x 60,000, 256 arcs a person over about 25,000 used
+    columns: even compacted the plane is past the kernel's shared
+    memory, so ``engine="auto"`` takes the arcs.  Bit-equal to JAX's
+    dense engine (its XLA rounds on the plane), to the port's own plane
+    route on its plain rounds (``engine="dense"``), and optimal."""
+    b, n, m, k = 2, 128, 60_000, 256
+    columns, values = make_arcs(62, b, n, m, k, hi=3)
+    before = dict(tbatch.SPARSE_ROUTES)
+    got = port.solve_batch_sparse(columns, values, m, eps=0.5 / n,
+                                  device="cpu")
+    assert tbatch.SPARSE_ROUTES["arcs"] == before["arcs"] + 1
+    plane = port.solve_batch_sparse(columns, values, m, eps=0.5 / n,
+                                    engine="dense", device="cpu")
+    assert tbatch.SPARSE_ROUTES["plane"] == before["plane"] + 1
+    want = jbatch.solve_batch_sparse(columns, values, m, eps=0.5 / n,
+                                     engine="dense")
+    for other in (want, plane):
+        assert_same_solution(got, other)
+        np.testing.assert_array_equal(got.objective, other.objective)
+    assert got.num_unassigned.sum() == 0 and got.nits.max() > 1
+    for bi in range(b):
+        assert got.objective[bi] == scipy_objective(columns[bi], values[bi],
+                                                    m)
+
+
+def crate_like(seed, b, n, m, k):
+    """Values in [300, 1000) and ε = 1/60,000, where float32 cannot keep
+    ε in a profit; persons 0 and 1 of instance 0 are the pair that takes
+    one object from each other forever in float32 (their arcs 0/1 and
+    0/2, gaps of 39, every other arc at 999)."""
+    rng = np.random.default_rng(seed)
+    columns = np.stack([
+        np.stack([3 + rng.choice(m - 3, size=k, replace=False)
+                  for _ in range(n)]) for _ in range(b)]).astype(np.int32)
+    values = rng.integers(300, 1000, size=(b, n, k)).astype(np.float64)
+    columns[0, 0, :2], values[0, 0, :2] = (0, 1), (369.0, 408.0)
+    columns[0, 1, :2], values[0, 1, :2] = (0, 2), (336.0, 375.0)
+    values[0, :2, 2:] = 999.0
+    return columns, values
+
+
+def test_arc_route_runs_float64_where_float32_cannot_resolve_eps():
+    """Past the plane limit, at the crate's values and ε, both staging
+    entry points take the arcs in float64 (in float32 persons 0 and 1
+    would never finish): bit-equal to JAX's dense engine and to the
+    port's plane route, both in float64, and optimal."""
+    eps = 1 / 60_000
+    b, n, m, k = 2, 8, 19_456, 32
+    columns, values = crate_like(63, b, n, m, k)
+    st = port.stage_batch_sparse_device(columns, values.astype(np.float32),
+                                        m, eps=eps, device="cpu")
+    assert st.values_nm is None and st.work_device.dtype == torch.float64
+    got = port.solve_batch_sparse_stream([st])[0]
+    want = jbatch.solve_batch_sparse(columns, values, m, eps=eps,
+                                     dtype=np.float64, engine="dense")
+    plane = port.solve_batch_sparse(columns, values, m, eps=eps,
+                                    dtype=np.float64, engine="dense",
+                                    device="cpu")
+    for other in (want, plane):
+        assert_same_solution(got, other)
+    assert got.num_unassigned.sum() == 0 and got.person_to_object[0, 1] == 2
+    for bi in range(b):
+        assert got.objective[bi] == scipy_objective(columns[bi], values[bi],
+                                                    m)
+
+    n, m, k = 8, 60_000, 3_200  # about 20,800 used columns
+    columns, values = crate_like(64, b, n, m, k)
+    got = port.solve_batch_sparse(columns, values, m, eps=eps, device="cpu")
+    want = jbatch.solve_batch_sparse(columns, values, m, eps=eps,
+                                     dtype=np.float64, engine="dense")
+    assert_same_solution(got, want)
+    np.testing.assert_array_equal(got.objective, want.objective)
+    assert got.num_unassigned.sum() == 0
+
+
+def test_crate_precision_takes_the_float64_arcs_at_a_plane_fitting_size():
+    """The crate's values and ε at 8 persons over 600 objects, which the
+    plane kernel takes: the precision is decided before the route, so
+    both auto entry points run the arcs in float64 (not the float32
+    plane, where persons 0 and 1 never finish), bit-equal to JAX's and
+    the port's float64 plane rounds, and optimal.  ``engine="dense"``
+    keeps the plane and the ``dtype`` given."""
+    eps = 1 / 60_000
+    b, n, m, k = 2, 8, 600, 32
+    columns, values = crate_like(65, b, n, m, k)
+    assert tbatch._plane_fits(n, m)
+    before = dict(tbatch.SPARSE_ROUTES)
+    st = port.stage_batch_sparse_device(columns, values.astype(np.float32),
+                                        m, eps=eps, device="cpu")
+    assert st.values_nm is None and st.work_device.dtype == torch.float64
+    staged = port.solve_batch_sparse_stream([st])[0]
+    auto = port.solve_batch_sparse(columns, values, m, eps=eps, device="cpu")
+    assert tbatch.SPARSE_ROUTES["arcs"] == before["arcs"] + 2
+    assert tbatch.SPARSE_ROUTES["plane"] == before["plane"]
+    want = jbatch.solve_batch_sparse(columns, values, m, eps=eps,
+                                     dtype=np.float64, engine="dense")
+    plane = port.solve_batch_sparse(columns, values, m, eps=eps,
+                                    dtype=np.float64, engine="dense",
+                                    device="cpu")
+    assert tbatch.SPARSE_ROUTES["plane"] == before["plane"] + 1
+    for got in (staged, auto):
+        for other in (want, plane):
+            assert_same_solution(got, other)
+        np.testing.assert_array_equal(got.objective, want.objective)
+        assert got.num_unassigned.sum() == 0
+        assert got.person_to_object[0, 1] == 2
+        for bi in range(b):
+            assert got.objective[bi] == scipy_objective(columns[bi],
+                                                        values[bi], m)
+    stuck = port.solve_batch_sparse(columns, values, m, eps=eps,
+                                    engine="dense", max_rounds=200,
+                                    device="cpu")
+    assert tbatch.SPARSE_ROUTES["plane"] == before["plane"] + 2
+    assert stuck.num_unassigned[0] == 1

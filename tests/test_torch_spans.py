@@ -165,3 +165,70 @@ def test_o2p_from_p2o_device_marks_the_inversion(tmp_path):
     np.testing.assert_array_equal(got.numpy(), solution.o2p_from_p2o(p2o, 4))
     assert free.tolist() == [1, 0]
     assert [s[0] for s in spans] == [INVERT]
+
+
+STAGE = trace.STAGE_SPAN
+
+
+def _arcs(seed, b, n, m, k):
+    rng = np.random.default_rng(seed)
+    cols = np.stack([np.stack([rng.choice(m, size=k, replace=False)
+                               for _ in range(n)]) for _ in range(b)])
+    return cols.astype(np.int32), rng.integers(1, 40, size=(b, n, k))
+
+
+def test_sparse_arc_route_spans_nest(tmp_path):
+    """The arc route (8 persons over 19,456 objects: past the plane
+    kernel's shared memory) marks ``slap.stage`` over each staging, then
+    for each batch of the stream its waits, and one ``slap.finish``
+    holding one ``slap.invert`` (the device inversion); a solve under
+    the profiler returns the same bits."""
+    cols, vals = _arcs(30, 2, 8, 19_456, 4)
+
+    def solve():
+        staged = [port.stage_batch_sparse_device(
+            cols, vals.astype(np.float32), 19_456, eps=1 / 16, device="cpu")
+            for _ in range(2)]
+        return port.solve_batch_sparse_stream(staged, window=2)
+
+    off = solve()
+    before = dict(solution.INVERSIONS)
+    on, spans = _recorded(solve, tmp_path)
+    assert solution.INVERSIONS["device"] == before["device"] + 2
+    assert solution.INVERSIONS["host"] == before["host"]
+    assert [s[0] for s in spans[:2]] == [STAGE, STAGE]
+    finishes = [s for s in spans if s[0] == FINISH]
+    inverts = [s for s in spans if s[0] == INVERT]
+    waits = [s for s in spans if s[0] == WAIT]
+    assert len(finishes) == 2 and len(inverts) == 2 and len(waits) >= 2
+    for finish, invert in zip(finishes, inverts):
+        assert _inside(finish, invert)
+    assert max(w[2] for w in waits if w[2] <= finishes[0][1]) <= \
+        finishes[0][1]
+    for a, b in zip(off, on):
+        for field in ("person_to_object", "object_to_person",
+                      "num_unassigned", "objective", "nits"):
+            np.testing.assert_array_equal(getattr(a, field),
+                                          getattr(b, field))
+
+
+@pytest.mark.parametrize("engine,route", [("auto", "arcs"),
+                                          ("dense", "plane"),
+                                          ("padded", "padded")])
+def test_solve_batch_sparse_marks_its_staging_and_counts_its_route(
+        engine, route, tmp_path):
+    """8 persons with 3,200 arcs each over 60,000 objects use about
+    20,800 columns: compacted, the plane is still past the plane
+    kernel's shared memory."""
+    cols, vals = _arcs(31, 2, 8, 60_000, 3_200)
+    before = dict(batch.SPARSE_ROUTES)
+    _, spans = _recorded(lambda: port.solve_batch_sparse(
+        cols, vals, 60_000, eps=1 / 16, engine=engine, device="cpu"),
+        tmp_path)
+    assert {k: batch.SPARSE_ROUTES[k] - before[k] for k in before} == {
+        k: int(k == route) for k in before}
+    assert spans[0][0] == STAGE
+    assert [s[0] for s in spans].count(STAGE) == 1
+    if route != "padded":
+        finish = next(s for s in spans if s[0] == FINISH)
+        assert spans[0][2] <= finish[1]
