@@ -240,38 +240,6 @@ def certify_lattice(work, states, eps=1):
         assert bool((tight == 0).all()), "assigned pair not tight"
 
 
-def phase_breakdown(batch, fr_kernel, fr_init, costs, scale, rounds,
-                    warm_ms):
-    """Where the wall time of one warm north-star solve goes: each step
-    of the device-resident solve timed on its own (median of 3, each
-    ended by a device sync)."""
-    from sparse_linear_assignment_tpu_torch.solution import (
-        UNASSIGNED,
-        o2p_from_p2o,
-    )
-
-    n = costs.shape[1]
-    t = {}
-    t["stage_ms"], (vt, work, profits) = sync_ms(
-        lambda: batch._stage(costs, True, scale), reps=3)
-    t["init_ms"], s0 = sync_ms(lambda: fr_init(vt, 1, profits=profits),
-                               reps=3)
-    t["kernel_ms"], (st, _) = sync_ms(
-        lambda: fr_kernel.fr_chunk(vt, s0, rounds, values=work), reps=3)
-    t["done_check_ms"], _ = sync_ms(lambda: int((~st.done).sum()), reps=3)
-    t["readback_ms"], p2o = sync_ms(
-        lambda: (st.p2o.cpu().numpy(), st.nits.cpu().numpy())[0], reps=3)
-    t["objective_ms"], _ = sync_ms(
-        lambda: batch._device_objective(work, st.p2o, True).cpu(), reps=3)
-    t["host_post_ms"], _ = sync_ms(
-        lambda: (o2p_from_p2o(p2o, n), (p2o == UNASSIGNED).sum(axis=1)),
-        reps=3)
-    total = sum(t.values())
-    emit({"phase": "breakdown", **t, "sum_ms": total,
-          "warm_wall_ms": warm_ms,
-          "kernel_share_of_sum": t["kernel_ms"] / total})
-
-
 def kernel_split(phases, cyc, stamps, nits):
     """A one-CTA-per-instance kernel's phase counters (``phases``, ending
     in ``total`` and ``rounds``) as shares of its CTAs' round cycles, and
@@ -515,7 +483,7 @@ def phase_big_single(port, batch, fr_big, fr_kernel, fr_init, scipy_lsa):
           "slack": slack, "worst_shortfall": worst, "kernel_ms": ms8,
           "kernel_us_per_round": k8["us_per_round"]})
     del c8, vt8, work8, st, s8
-    return costs, dev, eps, launches, warm_ms, k8
+    return dev, eps, launches, k8
 
 
 def cycle_split(fr_big, cyc):
@@ -530,29 +498,6 @@ def cycle_split(fr_big, cyc):
         "wide_rounds": c["wide_rounds"],
         "wide_share": c["wide_cycles"] / total,
     }
-
-
-def phase_big_breakdown(batch, fr_init, costs, dev, eps, warm_ms):
-    """Where the wall of one warm 4096² big-single solve goes: each step
-    timed on its own (median of 3, each ended by a device sync)."""
-    from sparse_linear_assignment_tpu_torch.solution import o2p_from_p2o
-
-    n = costs.shape[1]
-    stage_ms, _ = sync_ms(lambda: batch._stage(dev, True, None), reps=3)
-    t = {}
-    t["solve_ms"], (p2o_dev, _, _) = sync_ms(
-        lambda: batch._fr_big_solve(dev, True, eps, 100_000), reps=3)
-    t["readback_ms"], p2o = sync_ms(lambda: p2o_dev.cpu().numpy(), reps=3)
-    t["host_objective_ms"], _ = sync_ms(lambda: np.take_along_axis(
-        costs, p2o[:, :, None], axis=2).sum(), reps=3)
-    t["host_post_ms"], _ = sync_ms(lambda: o2p_from_p2o(p2o, n), reps=3)
-    total = sum(t.values())
-    emit({"phase": "big_breakdown", "n": n, **t, "sum_ms": total,
-          "stage_ms": stage_ms, "warm_wall_ms": warm_ms,
-          "solve_share_of_sum": t["solve_ms"] / total,
-          "note": "solve_ms holds the staging (stage_ms, timed alone "
-                  "too), fr_init, the kernel chunks and the per-chunk "
-                  "done readback"})
 
 
 def phase_big_batch(port, scipy_lsa):
@@ -895,96 +840,7 @@ def phase_sparse_stream(port, batch, ksp, scipy_lsa):
           "nits_p50": float(np.median(nits)), "nits_max": int(nits.max()),
           "ksp_kernel_launches": launches, "scipy_checked": checked,
           "per_call_equals_stream": True, "peak_device_gib": peak_gib})
-    return staged, raw, launches, call_ms
-
-
-def phase_sparse_breakdown(batch, ksp, staged, raw, call_ms):
-    """Where the wall of one warm staged sparse solve goes: each step
-    timed on its own (median of 3, each ended by a device sync), and the
-    staging apart."""
-    from sparse_linear_assignment_tpu_torch.solution import (
-        UNASSIGNED,
-        o2p_from_p2o,
-    )
-
-    st = staged[0]
-    cols, vals = raw[0]
-    m = st.m
-    eps = np.float32(st.eps_val)
-    t = {}
-    t["kernel_ms"], states = sync_ms(lambda: ksp.ksp_chunk(
-        st.values_nm, ksp.khosla_init(st.values_nm), eps, st.thresholds,
-        batch._SPARSE_KERNEL_BUDGET), reps=3)
-    t["done_check_ms"], undone = sync_ms(
-        lambda: bool(ksp_active(states).any()), reps=3)
-    assert not undone
-    t["readback_ms"], p2o = sync_ms(
-        lambda: (states.p2o.cpu().numpy(), states.nits.cpu().numpy())[0],
-        reps=3)
-    t["objective_ms"], _ = sync_ms(
-        lambda: batch._sparse_device_objective(st, states.p2o).cpu(),
-        reps=3)
-    t["host_post_ms"], _ = sync_ms(
-        lambda: (o2p_from_p2o(p2o, m), (p2o == UNASSIGNED).sum(axis=1)),
-        reps=3)
-    total = sum(t.values())
-    scatter_ms, (_, w_lo, w_hi) = sync_ms(
-        lambda: batch._sparse_stage_scatter(cols, vals, m, True), reps=3)
-    thresholds_ms, _ = sync_ms(
-        lambda: (m / 2.0) * (w_hi - w_lo + torch.tensor(
-            st.eps_val, dtype=torch.float32, device="cuda")), reps=3)
-    emit({"phase": "sparse_breakdown", **t, "sum_ms": total,
-          "warm_wall_ms": call_ms,
-          "kernel_share_of_sum": t["kernel_ms"] / total,
-          "staging": {"scatter_ms": scatter_ms,
-                      "thresholds_ms": thresholds_ms},
-          "note": "kernel_ms holds khosla_init and one 64-round launch"})
-
-
-def phase_sparse_stream_split(port, batch, staged):
-    """Where the streamed solve's wall goes on the host: the time spent
-    inside each dispatch and each finish, and inside the finishes in the
-    device objective and in ``o2p_from_p2o``, summed over the batches of
-    one warm streamed solve, with one and with two batches in flight.
-    Host clock, no added syncs."""
-    names = ("_sparse_dispatch", "_sparse_finish",
-             "_sparse_device_objective", "o2p_from_p2o")
-    saved = {k: getattr(batch, k) for k in names}
-    spent = {}
-
-    def timed(name):
-        fn = saved[name]
-
-        def wrapper(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                spent[name] = (spent.get(name, 0.0)
-                               + (time.perf_counter() - t0) * 1e3)
-        return wrapper
-
-    out = {}
-    try:
-        for k in names:
-            setattr(batch, k, timed(k))
-        for window in (1, 2, 1, 2):
-            spent.clear()
-            wall_ms, _ = sync_ms(lambda: port.solve_batch_sparse_stream(
-                staged, window=window))
-            out[f"window{window}"] = {
-                "wall_ms": wall_ms,
-                "dispatch_ms": spent["_sparse_dispatch"],
-                "finish_ms": spent["_sparse_finish"],
-                "of_finish_objective_ms": spent["_sparse_device_objective"],
-                "of_finish_o2p_ms": spent["o2p_from_p2o"]}
-    finally:
-        for k, fn in saved.items():
-            setattr(batch, k, fn)
-    emit({"phase": "sparse_stream_split", "batches": len(staged), **out,
-          "note": "sums over the batches of the second of two streamed "
-                  "solves per window; finish holds the done check, the "
-                  "readbacks, the objective and the host post-processing"})
+    return staged, launches
 
 
 def phase_ksp_kernel_time(batch, ksp, staged):
@@ -1666,7 +1522,7 @@ def phase_forward_rect(port, batch, dr, scipy_lsa):
           "nits_p50": float(np.median(nits)), "nits_max": int(nits.max()),
           "dense_round_launches": launches, "chunks": chunks,
           "scipy_equal": len(rows), "peak_device_gib": peak_gib})
-    return costs, eps, launches, warm_ms, int(nits.max())
+    return launches
 
 
 def forward_loop(batch, costs, eps, solver):
@@ -1704,42 +1560,6 @@ def forward_loop(batch, costs, eps, solver):
         batch.fused_dense_chunk = real
     kernel_ms = sum(s.elapsed_time(e) for s, e in events)
     return t, out, kernel_ms, len(events)
-
-
-def phase_forward_breakdown(batch, dr, costs, eps, warm_ms):
-    """Where the wall of one warm ``forward_rect`` solve goes: the host
-    parameters, the copy, the staging, the chunk loop (the kernel by CUDA
-    events around every launch, the rest of the loop's wall beside it),
-    the alldone readback, the result readback and the host
-    post-processing."""
-    from sparse_linear_assignment_tpu_torch.solution import (
-        UNASSIGNED,
-        o2p_from_p2o,
-    )
-
-    m = costs.shape[2]
-    t, (p2o_dev, eps_dev, nits_dev), kernel_ms, launches = forward_loop(
-        batch, costs, eps, "forward")
-    flag = nits_dev.sum() > 0
-    readback_ms, _ = sync_ms(lambda: bool(flag), reps=5)
-    t["result_readback_ms"], p2o = sync_ms(
-        lambda: (p2o_dev.cpu().numpy(), nits_dev.cpu().numpy(),
-                 eps_dev.cpu().numpy())[0])
-    t["host_objective_ms"], _ = sync_ms(lambda: np.take_along_axis(
-        costs, p2o[:, :, None].astype(np.int64), axis=2)[:, :, 0].astype(
-            np.float64).sum(axis=1))
-    t["host_post_ms"], _ = sync_ms(
-        lambda: (o2p_from_p2o(p2o, m), (p2o == UNASSIGNED).sum(axis=1)))
-    total = sum(t.values())
-    emit({"phase": "forward_breakdown", **t, "sum_ms": total,
-          "warm_wall_ms": warm_ms, "of_loop_kernel_ms": kernel_ms,
-          "of_loop_rest_ms": t["loop_ms"] - kernel_ms,
-          "launches": launches,
-          "alldone_readback_ms_each": readback_ms,
-          "kernel_share_of_sum": kernel_ms / total,
-          "note": "loop_ms is _solve_batch_dense: forward_init, one chunk "
-                  "kernel launch a 64-round chunk with the eps-scaling "
-                  "bookkeeping inside, one alldone readback a chunk"})
 
 
 def phase_forward_square(port, batch, dr, scipy_lsa):
@@ -2689,8 +2509,8 @@ def sharded_north_star(port, batch, sharded, mods, fr_init):
     # ended by a device sync)
     with Breakdown([(sharded, name) for name in (
             "_local_costs", "_stage_values_t_sharded", "fr_init",
-            "_fr_batch_chunk_local", "all_gather_parts",
-            "o2p_from_p2o")]) as bd:
+            "_fr_batch_chunk_local", "all_gather_parts")]
+            + [(batch, "_batch_solution")]) as bd:
         bd_s, _ = wall_s(solve_sharded)
     north = {"batch": b, "n": n, "first_call_ms": first_ms,
              "warm_median_ms": warm_ms, "solve_batch_warm_median_ms": ref_ms,
@@ -3388,8 +3208,6 @@ def main() -> int:
           "scipy_checked": 8, "peak_device_gib": peak_gib,
           "continuation_from_20_rounds_equal": True,
           "continuation_rounds_budgeted": cont_rounds})
-    phase_breakdown(batch, fr_kernel, fr_init, costs, scale, rounds0,
-                    warm_ms)
 
     # 4. the kernel at the main path's shape: time, plain time, bound
     del vt, work, st
@@ -3486,25 +3304,21 @@ def main() -> int:
     del batches, res, costs
 
     # 7. big dense singles on the cluster kernel
-    bcosts, bdev, beps, big_launches, big_warm_ms, k8 = phase_big_single(
+    bdev, beps, big_launches, k8 = phase_big_single(
         port, batch, fr_big, fr_kernel, fr_init, scipy_lsa)
-    phase_big_breakdown(batch, fr_init, bcosts, bdev, beps, big_warm_ms)
     big = phase_big_kernel_time(batch, fr_big, fr_init, bdev, beps,
                                 big_plain, k8)
     del big_plain
-    del bcosts, bdev
+    del bdev
     phase_big_batch(port, scipy_lsa)
 
     # 8. the native straggler tail of the host-costs branch
     phase_native_tail(port, batch, scipy_lsa)
 
     # 9. the batched sparse mode on the Khosla kernel
-    staged, raw, ksp_launches, sparse_call_ms = phase_sparse_stream(
-        port, batch, ksp, scipy_lsa)
-    phase_sparse_breakdown(batch, ksp, staged, raw, sparse_call_ms)
-    phase_sparse_stream_split(port, batch, staged)
+    staged, ksp_launches = phase_sparse_stream(port, batch, ksp, scipy_lsa)
     kspt = phase_ksp_kernel_time(batch, ksp, staged)
-    del staged, raw
+    del staged
     phase_sparse_host(port, batch, ksp, scipy_lsa)
     phase_sparse_infeasible(port)
 
@@ -3513,10 +3327,7 @@ def main() -> int:
     arcs = phase_ksp_arcs(port, batch, ka, ksp)
 
     # 10. the forward and Khosla engines and the plain-rounds FR route
-    rcosts, reps_, dr_launches, rect_warm_ms, _ = phase_forward_rect(
-        port, batch, dr, scipy_lsa)
-    phase_forward_breakdown(batch, dr, rcosts, reps_, rect_warm_ms)
-    del rcosts
+    dr_launches = phase_forward_rect(port, batch, dr, scipy_lsa)
     phase_forward_square(port, batch, dr, scipy_lsa)
     phase_khosla_dense(port, scipy_lsa)
     phase_fr_plain_rounds(port, batch, fr_kernel, scipy_lsa)

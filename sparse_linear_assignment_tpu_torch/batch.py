@@ -121,8 +121,7 @@ from .ops.ksparse_kernel import (
     smem_bytes,
 )
 from .ops.stage import stage as _stage  # the FR routes' staging
-from .solution import (UNASSIGNED, convert_indices, o2p_from_p2o,
-                       o2p_from_p2o_device)
+from .solution import UNASSIGNED, convert_indices, o2p_from_p2o_device
 from .utils.trace import (
     FINISH_SPAN,
     SOLVE_BATCH_SPAN,
@@ -187,11 +186,11 @@ class BatchSolution:
     ``UNASSIGNED`` sentinel; ``objective`` is in original cost units
     (float64 accumulation).
 
-    From a card, ``solve_batch`` and the sparse arc route return
-    ``person_to_object``, ``object_to_person`` and ``num_unassigned`` as
-    views of one page-locked host block (:func:`_read_matching`), which
-    PyTorch's caching host allocator keeps while any of them lives and
-    reuses after: a caller that keeps many results holds that much
+    ``person_to_object``, ``object_to_person`` and ``num_unassigned`` are
+    views of one host block (:func:`_batch_solution`).  Where a card
+    holds the final matching the block is page-locked, and PyTorch's
+    caching host allocator keeps it while any of the views lives and
+    reuses it after: a caller that keeps many results holds that much
     memory the system cannot swap (B·(N + M + 1)·4 bytes a result: 63 MB
     for 256 instances of 2,000 x 60,000).  ``np.array(...)`` copies one
     into pageable memory."""
@@ -270,6 +269,12 @@ class BatchedLAP:
         )
 
 
+def _fused_shape(n: int, m: int) -> bool:
+    """The batched FR kernel's shape rule (its callers add their own
+    dtype condition): N % 128 == 0, M % 8 == 0, N·M <= 1024²."""
+    return n % 128 == 0 and m % 8 == 0 and n * m <= _FUSED_MAX_ELEMS
+
+
 def _integer_scale(costs, eps, n, m, integer, max_cost):
     """Decide whether the solve can run in the exact integer-auction
     mode, and with which lattice scale.
@@ -283,7 +288,7 @@ def _integer_scale(costs, eps, n, m, integer, max_cost):
     device-resident inputs, which then need ``max_cost``);
     ``integer=None`` auto-detects on host costs; ``integer=False``
     disables."""
-    if integer is False or n != m or n % 128 or n * m > _FUSED_MAX_ELEMS:
+    if integer is False or n != m or not _fused_shape(n, m):
         return None
     if integer is None and costs is None:
         return None  # device-resident: only on explicit opt-in
@@ -471,30 +476,64 @@ def _device_objective(work, p2o, negate: bool) -> torch.Tensor:
     return -obj if negate else obj
 
 
-def _read_matching(p2o_dev: torch.Tensor, m: int):
-    """The final matching, its object→person map and its unassigned
-    counts, built from ``p2o_dev [B, N]`` on its device
-    (``o2p_from_p2o_device``, which rebuilds the map whatever the rounds
-    left in theirs) and read back in one int32 transfer: ``(p2o [B, N],
-    o2p [B, M], num_unassigned [B])``, C-contiguous views of one host
-    array.  From a card the array is page-locked, from PyTorch's caching
-    host allocator: a pageable one past glibc's mmap threshold (32 MiB
-    where the benchmark pins it; a 256 x 60,000 batch's maps are 63 MB)
-    is mapped afresh and faulted in page by page on every call.  The
-    block stays page-locked while the caller holds any of the views
-    (:class:`BatchSolution`), and returns to the allocator's cache, not
-    to the system, after."""
-    b, n = p2o_dev.shape
-    o2p, num_unassigned = o2p_from_p2o_device(p2o_dev, m)
-    packed = torch.cat(
-        [p2o_dev.reshape(-1), o2p.reshape(-1), num_unassigned])
+def _batch_solution(p2o: torch.Tensor, m: int, objective, eps,
+                    nits) -> BatchSolution:
+    """The result of a batch solve from its final matching ``p2o [B, N]``
+    (int32, on whichever device holds it): object→person and the
+    unassigned counts built there (``o2p_from_p2o_device``, which
+    rebuilds the map whatever the rounds left in theirs) and read back
+    with the matching in one int32 transfer, C-contiguous views of one
+    host array.  From a card the array is page-locked, from PyTorch's
+    caching host allocator: a pageable one past glibc's mmap threshold
+    (32 MiB where the benchmark pins it; a 256 x 60,000 batch's maps are
+    63 MB) is mapped afresh and faulted in page by page on every call.
+    The block stays page-locked while the caller holds any of the views,
+    and returns to the allocator's cache, not to the system, after.
+
+    ``objective``, ``eps`` and ``nits`` (``[B]`` each) come as the route
+    has them: tensors, read back here, or host arrays; ``objective`` may
+    instead be a function of the host matching, called after the
+    readback, where the route picks it from host costs."""
+    b, n = p2o.shape
+    o2p, num_unassigned = o2p_from_p2o_device(p2o, m)
+    packed = torch.cat([p2o.reshape(-1), o2p.reshape(-1), num_unassigned])
     host = packed
     if packed.is_cuda:
         host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
         host.copy_(packed)
     flat = host.numpy()
-    return (flat[:b * n].reshape(b, n), flat[b * n:b * (n + m)].reshape(b, m),
-            flat[b * (n + m):])
+    p2o = flat[:b * n].reshape(b, n)
+    if callable(objective):
+        objective = objective(p2o)
+    objective, eps, nits = (
+        x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+        for x in (objective, eps, nits))
+    return BatchSolution(
+        person_to_object=p2o,
+        object_to_person=flat[b * n:b * (n + m)].reshape(b, m),
+        num_unassigned=flat[b * (n + m):],
+        objective=objective,
+        eps=eps.astype(np.float64, copy=False),
+        nits=nits,
+    )
+
+
+def _pipeline(items, window: int, dispatch, finish) -> list:
+    """The streamed solves' window: ``dispatch(item, slot)`` for each item
+    in order (``slot``, ``k % window``, picks its stream), and
+    ``finish(*dispatched)`` for the oldest once ``window`` are in flight,
+    so at most ``window`` staged batches are live and the oldest batch's
+    readback overlaps the newer ones' rounds.  Returns the finishes'
+    results in input order."""
+    results = []
+    pending: deque = deque()
+    for k, item in enumerate(items):
+        pending.append(dispatch(item, k % window))
+        while len(pending) >= window:
+            results.append(finish(*pending.popleft()))
+    while pending:
+        results.append(finish(*pending.popleft()))
+    return results
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -521,12 +560,7 @@ def _route(b, n, m, dtype, int_scale) -> str:
     ):
         fr_big.plan(n)
         return "big"
-    if (
-        (int_scale is not None or f32)
-        and n % 128 == 0
-        and m % 8 == 0
-        and n * m <= _FUSED_MAX_ELEMS
-    ):
+    if (int_scale is not None or f32) and _fused_shape(n, m):
         return "fused"
     return "plain"
 
@@ -822,9 +856,9 @@ def solve_batch(
     ``slap.wait`` a blocking readback of the solver driver, then
     ``slap.finish`` from the driver's end to the returned solution
     (the readbacks, the native tail where host costs have one, the
-    objective, the counts), holding one ``slap.invert``: the inversion on
-    the device (``o2p_from_p2o_device``) where the device holds the final
-    matching, else ``o2p_from_p2o`` on the host."""
+    objective, the counts), holding one ``slap.invert``: the inversion
+    (``o2p_from_p2o_device``) on whichever device holds the final
+    matching, the CPU after the plain route or a native tail."""
     global LAST_TAIL_COUNT
     with span(SOLVE_BATCH_SPAN):
         if solver == "auto":
@@ -873,13 +907,13 @@ def solve_batch(
             costs_dev = torch.from_numpy(host).to(resolve_device(device))
             del host
 
-        p2o_dev = work = done = eps_dev = tail = tail_nits = None
+        p2o_dev = work = done = tail = tail_nits = None
         tail_allowed = True
         if solver != "fr":
             eps_val, target_eps, toleration, thresholds = _dense_engine_params(
                 costs, maximize, solver, eps, n, m, start_eps_divisor
             )
-            p2o_dev, eps_dev, nits_dev = _solve_batch_dense(
+            p2o_dev, final_eps, nits_dev = _solve_batch_dense(
                 _stage_work(costs_dev, not maximize), eps_val, target_eps,
                 toleration, thresholds, solver, int(max_iterations), n, m,
             )
@@ -921,59 +955,41 @@ def solve_batch(
         with span(FINISH_SPAN):
             if done is not None:
                 tail = ~done.cpu().numpy() & tail_allowed
-            host_tail = costs is not None and tail is not None and tail.any()
-            # the device holds the final matching unless the native tail
-            # rewrites it on the host
-            on_device = p2o_dev is not None and not host_tail
-            if p2o_dev is not None:
-                if not on_device:
-                    p2o = p2o_dev.cpu().numpy()
-                nits = nits_dev.cpu().numpy()
-            if eps_dev is not None:
-                final_eps = eps_dev.cpu().numpy().astype(np.float64)
-            if host_tail:
+            if costs is not None and tail is not None and tail.any():
+                # the native tail rewrites the matching on the host
+                if p2o_dev is not None:
+                    p2o, nits = p2o_dev.cpu().numpy(), nits_dev.cpu().numpy()
+                    p2o_dev = None
                 _native_tail(costs, maximize, tail_eps, max_iterations,
                              np.nonzero(tail)[0], p2o)
                 if tail_nits is not None:
                     nits[tail] = tail_nits
+            if p2o_dev is None:
+                # the final matching lies on the host: inverted there
+                p2o_dev, nits_dev = torch.from_numpy(p2o), nits
             if costs is None:
-                if p2o_dev is None:
-                    p2o_dev = torch.from_numpy(p2o).to(costs_dev.device)
+                # before the inversion, whose allocations then find the
+                # objective's transients freed
+                p2o_obj = p2o_dev.to(costs_dev.device)
                 if int_scale is None:
                     # the costs themselves: the staged values are only their
                     # negation
-                    objective = _device_objective(costs_dev, p2o_dev, False)
+                    objective = _device_objective(costs_dev, p2o_obj, False)
                     objective = objective.cpu().numpy()
                 else:
-                    objective = _device_objective(work, p2o_dev, not maximize)
+                    objective = _device_objective(work, p2o_obj, not maximize)
                     # the summands are original integers times the scale: exact
                     objective = objective.cpu().numpy() / int_scale
-            # after the device objective, whose transients are freed by now
-            if on_device:
-                p2o, o2p, num_unassigned = _read_matching(p2o_dev, m)
             else:
-                # rebuilt from the final matching: keep-valid phases of the
-                # forward engine leave the rounds' o2p stale by design
-                o2p = o2p_from_p2o(p2o, m)
-                num_unassigned = (p2o == UNASSIGNED).sum(axis=1).astype(
-                    np.int32)
-            if costs is not None:
-                assigned = p2o != UNASSIGNED
-                safe = np.where(assigned, p2o, 0)
-                # widened after the pick: the same float64 numbers without a
-                # float64 copy of the whole batch
-                picked = np.take_along_axis(
-                    costs, safe[:, :, None], axis=2
-                )[:, :, 0].astype(np.float64)
-                objective = np.where(assigned, picked, 0.0).sum(axis=1)
-            return BatchSolution(
-                person_to_object=p2o,
-                object_to_person=o2p,
-                num_unassigned=num_unassigned,
-                objective=objective,
-                eps=final_eps,
-                nits=nits,
-            )
+                def objective(p2o):
+                    assigned = p2o != UNASSIGNED
+                    # widened after the pick: the same float64 numbers
+                    # without a float64 copy of the whole batch
+                    picked = np.take_along_axis(
+                        costs, np.where(assigned, p2o, 0)[:, :, None], axis=2
+                    )[:, :, 0].astype(np.float64)
+                    return np.where(assigned, picked, 0.0).sum(axis=1)
+            return _batch_solution(p2o_dev, m, objective, final_eps, nits_dev)
 
 
 def solve_batch_stream(
@@ -1012,13 +1028,8 @@ def solve_batch_stream(
     if n != m:
         raise ValueError("streamed mode requires square instances")
     int_scale = _integer_scale(None, eps, n, m, integer, max_cost)
-    fused_ok = (
-        (int_scale is not None or np.dtype(dtype) == np.float32)
-        and n % 128 == 0
-        and m % 8 == 0
-        and n * m <= _FUSED_MAX_ELEMS
-    )
-    if not fused_ok:
+    if not ((int_scale is not None or np.dtype(dtype) == np.float32)
+            and _fused_shape(n, m)):
         # off the fused route: sequential device-resident solve_batch
         # calls (the big-single or the plain-rounds route)
         return [
@@ -1042,7 +1053,8 @@ def solve_batch_stream(
     window = max(1, window)
     streams = _window_streams(device_batches[0].device, window)
 
-    def dispatch(dev, stream):
+    def dispatch(dev, slot):
+        stream = streams[slot]
         if stream is not None:
             stream.wait_stream(torch.cuda.current_stream(dev.device))
             dev.record_stream(stream)
@@ -1057,32 +1069,14 @@ def solve_batch_stream(
             states, _, _ = _fr_continue(
                 values_t, work, states, base_rounds, max_iterations
             )
-            p2o = states.p2o.cpu().numpy()
             objective = _device_objective(work, states.p2o, negate)
             objective = objective.cpu().numpy()
-            nits = states.nits.cpu().numpy()
-        if int_scale is not None:
-            objective = objective / int_scale
-        return BatchSolution(
-            person_to_object=p2o,
-            object_to_person=o2p_from_p2o(p2o, m),
-            num_unassigned=(p2o == UNASSIGNED).sum(axis=1).astype(np.int32),
-            objective=objective,
-            eps=np.full(b, final_eps),
-            nits=nits,
-        )
+            if int_scale is not None:
+                objective = objective / int_scale
+            return _batch_solution(states.p2o, m, objective,
+                                   np.full(b, final_eps), states.nits)
 
-    results = []
-    pending: deque = deque()
-    for k, dev in enumerate(device_batches):
-        pending.append(dispatch(dev, streams[k % window]))
-        # drain at window: at most `window` staged batches are live, and
-        # the oldest batch's readback overlaps the newer ones' kernels
-        while len(pending) >= window:
-            results.append(finish(*pending.popleft()))
-    while pending:
-        results.append(finish(*pending.popleft()))
-    return results
+    return _pipeline(device_batches, window, dispatch, finish)
 
 
 def linear_sum_assignment(cost_matrix, maximize: bool = False,
@@ -1503,10 +1497,23 @@ def _sparse_device_objective(st: _SparseStaged, p2o) -> torch.Tensor:
     return picked.sum(dim=(1, 2))
 
 
+def _arc_objective(columns, arc_mask, values64):
+    """The objective in original cost units from the host arcs, as a
+    function of the host matching (original column ids): person i's
+    chosen value is the one of its slot whose column is ``p2o[b, i]``;
+    unassigned persons add 0."""
+    def objective(p2o):
+        match = arc_mask & (columns == p2o[:, :, None])
+        return np.where(match, values64, 0.0).sum(axis=(1, 2))
+    return objective
+
+
 def _sparse_finish(st: _SparseStaged, ctx: dict,
                    max_rounds: int) -> BatchSolution:
-    """Block on the done check, run (rare) continuation chunks, read the
-    result back and map local column ids to the original object space."""
+    """Block on the done check and run (rare) continuation chunks; then,
+    on the batch's stream, the device objective where the staging is
+    device-resident, local column ids mapped back to the original object
+    space on the device, and :func:`_batch_solution`."""
     states, rounds, cur = ctx["states"], ctx["rounds"], ctx["chunk"]
     with _on_stream(ctx["stream"]):
         while True:
@@ -1520,73 +1527,22 @@ def _sparse_finish(st: _SparseStaged, ctx: dict,
                    else min(1024, cur * 2))
             states = ctx["run"](states, cur)
             rounds += cur
-        if st.values_nm is None:
-            return _sparse_finish_arcs(st, states)
-    with span(FINISH_SPAN):
-        with _on_stream(ctx["stream"]):
-            p2o_loc = states.p2o.cpu().numpy()
-            nits = states.nits.cpu().numpy()
-            if st.device_mode:
-                objective = _sparse_device_objective(st, states.p2o)
-                objective = objective.cpu().numpy()
-        assigned = p2o_loc != UNASSIGNED
-        if st.used_cols is not None:
-            p2o = np.where(
-                assigned,
-                np.take_along_axis(
-                    st.used_cols,
-                    np.where(assigned, p2o_loc, 0).astype(np.int64),
-                    axis=1,
-                ),
-                np.int64(UNASSIGNED),
-            ).astype(np.int32)
-        else:
-            p2o = p2o_loc
-        if not st.device_mode:
-            match = st.arc_mask & (st.columns == p2o[:, :, None])
-            objective = np.where(match, st.values64, 0.0).sum(axis=(1, 2))
-        return BatchSolution(
-            person_to_object=p2o,
-            object_to_person=o2p_from_p2o(p2o, st.m),
-            num_unassigned=(~assigned).sum(axis=1).astype(np.int32),
-            objective=objective,
-            eps=np.full(p2o.shape[0], st.eps_val),
-            nits=nits,
-        )
-
-
-def _sparse_finish_arcs(st: _SparseStaged, states) -> BatchSolution:
-    """The arc route's finish, on the current stream: local column ids
-    mapped back and the device objective on the device, then the
-    matching, its object-to-person map and its counts in one readback
-    (:func:`_read_matching`, as :func:`solve_batch` finishes)."""
-    with span(FINISH_SPAN):
-        p2o_dev = states.p2o
-        objective = (_sparse_device_objective(st, p2o_dev)
-                     if st.device_mode else None)
-        if st.used_cols is not None:
-            used = torch.from_numpy(st.used_cols).to(p2o_dev.device)
-            assigned = p2o_dev != UNASSIGNED
-            p2o_dev = torch.where(
-                assigned,
-                used.gather(1, torch.where(assigned, p2o_dev, 0).long()),
-                UNASSIGNED,
-            ).to(torch.int32)
-        p2o, o2p, num_unassigned = _read_matching(p2o_dev, st.m)
-        nits = states.nits.cpu().numpy()
-        if objective is None:
-            match = st.arc_mask & (st.columns == p2o[:, :, None])
-            objective = np.where(match, st.values64, 0.0).sum(axis=(1, 2))
-        else:
-            objective = objective.cpu().numpy()
-        return BatchSolution(
-            person_to_object=p2o,
-            object_to_person=o2p,
-            num_unassigned=num_unassigned,
-            objective=objective,
-            eps=np.full(p2o.shape[0], st.eps_val),
-            nits=nits,
-        )
+        with span(FINISH_SPAN):
+            p2o = states.p2o
+            objective = (_sparse_device_objective(st, p2o) if st.device_mode
+                         else _arc_objective(st.columns, st.arc_mask,
+                                             st.values64))
+            if st.used_cols is not None:
+                used = torch.from_numpy(st.used_cols).to(p2o.device)
+                assigned = p2o != UNASSIGNED
+                p2o = torch.where(
+                    assigned,
+                    used.gather(1, torch.where(assigned, p2o, 0).long()),
+                    UNASSIGNED,
+                ).to(torch.int32)
+            return _batch_solution(p2o, st.m, objective,
+                                   np.full(p2o.shape[0], st.eps_val),
+                                   states.nits)
 
 
 def _sparse_solve_staged(st: _SparseStaged, max_rounds: int,
@@ -1654,20 +1610,14 @@ def solve_batch_sparse_stream(
     post-processing overlap the next batch's rounds.  On the card each
     in-flight batch runs on its own CUDA stream, so a readback waits
     only for its own batch.  Returns ``list[BatchSolution]`` in order."""
-    staged = list(staged)
     window = max(1, window)
-    results = []
-    pending: deque = deque()
-    for k, st in enumerate(staged):
-        stream = _window_streams(st.thresholds.device, window)[k % window]
-        pending.append((st, _sparse_dispatch(st, chunk, stream)))
-        while len(pending) >= window:
-            s, ctx = pending.popleft()
-            results.append(_sparse_finish(s, ctx, max_rounds))
-    while pending:
-        s, ctx = pending.popleft()
-        results.append(_sparse_finish(s, ctx, max_rounds))
-    return results
+
+    def dispatch(st, slot):
+        stream = _window_streams(st.thresholds.device, window)[slot]
+        return st, _sparse_dispatch(st, chunk, stream)
+
+    return _pipeline(staged, window, dispatch,
+                     lambda st, ctx: _sparse_finish(st, ctx, max_rounds))
 
 
 def _sparse_auto_route(problem, dtype, dev):
@@ -1814,16 +1764,6 @@ def _solve_batch_sparse_padded(columns, values64, arc_mask, work, m: int,
             break
         cur = min(chunk, cur * 2)
 
-    p2o = states.p2o.cpu().numpy()
-    assigned = p2o != UNASSIGNED
-    # the objective from the original values: each person's chosen
-    # column against its arc slots (unassigned persons add 0)
-    match = arc_mask & (columns == p2o[:, :, None])
-    return BatchSolution(
-        person_to_object=p2o,
-        object_to_person=o2p_from_p2o(p2o, m),
-        num_unassigned=(~assigned).sum(axis=1).astype(np.int32),
-        objective=np.where(match, values64, 0.0).sum(axis=(1, 2)),
-        eps=np.full(b, eps_val),
-        nits=states.nits.cpu().numpy(),
-    )
+    return _batch_solution(states.p2o, m,
+                           _arc_objective(columns, arc_mask, values64),
+                           np.full(b, eps_val), states.nits)

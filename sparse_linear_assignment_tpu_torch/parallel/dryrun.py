@@ -168,6 +168,28 @@ def run_solver(fn, solver, **kwargs) -> dict:
     }
 
 
+def one_block(sol) -> bool:
+    """Whether a :class:`~..batch.BatchSolution`'s ``person_to_object``,
+    ``object_to_person`` and ``num_unassigned`` are int32, C-contiguous
+    views of one host block, the batch finish's single readback."""
+    parts = (sol.person_to_object, sol.object_to_person,
+             sol.num_unassigned)
+    block = parts[0].base
+    return (isinstance(block, np.ndarray)
+            and block.size == sum(p.size for p in parts)
+            and all(p.dtype == np.int32 and p.flags.c_contiguous
+                    and np.shares_memory(block, p) for p in parts))
+
+
+def with_blocks(fn, *args, **kwargs) -> tuple:
+    """``fn(*args, **kwargs)`` for a batch entry point, and
+    :func:`one_block` of each solution it returned (one, or a list),
+    taken on the rank: a result pickled back holds its arrays apart."""
+    out = fn(*args, **kwargs)
+    return out, [one_block(s) for s in (out if isinstance(out, list)
+                                         else [out])]
+
+
 # ----------------------------------------------------------------------
 # The collectives on rank-dependent inputs
 # ----------------------------------------------------------------------

@@ -70,7 +70,6 @@ carries int32 indices and the float64 objective's words).
 from __future__ import annotations
 
 import functools
-from collections import deque
 from typing import NamedTuple
 
 import numpy as np
@@ -84,8 +83,7 @@ from ..ops import graphs
 from ..ops.fr_kernel import fr_chunk
 from ..ops.ksparse_kernel import khosla_init, ksp_chunk
 from ..ops.padded import build_padded_arrays
-from ..solution import INDEX_DTYPE, UNASSIGNED, AuctionSolution, \
-    o2p_from_p2o
+from ..solution import INDEX_DTYPE, UNASSIGNED, AuctionSolution
 from ..utils.trace import trace_host, trace_round
 from .collectives import (
     all_gather_parts,
@@ -900,12 +898,8 @@ def _use_fr_kernel(dtype, n: int, m: int) -> bool:
     """The JAX package's kernel routing of the batch-sharded FR modes:
     float32 or the int32 lattice, N % 128 == 0, M % 8 == 0,
     N·M <= 1024²."""
-    return bool(
-        np.dtype(dtype) in (np.float32, np.int32)
-        and n % 128 == 0
-        and m % 8 == 0
-        and n * m <= batch_mod._FUSED_MAX_ELEMS
-    )
+    return bool(np.dtype(dtype) in (np.float32, np.int32)
+                and batch_mod._fused_shape(n, m))
 
 
 def solve_batch_sharded(
@@ -990,29 +984,26 @@ def solve_batch_sharded(
     if local.dtype in (torch.float64, batch_mod._torch_dtype(costs.dtype)):
         picked = local.gather(2, safe[:, :, None])[:, :, 0].to(
             torch.float64)
-        p2o, nits, picked = (x.cpu().numpy()[:b] for x in all_gather_parts(
+        p2o, nits, picked = (x[:b] for x in all_gather_parts(
             [states.p2o, states.nits, picked], group))
+        picked = picked.cpu().numpy()
     else:
-        p2o, nits = (x.cpu().numpy()[:b] for x in all_gather_parts(
+        p2o, nits = (x[:b] for x in all_gather_parts(
             [states.p2o, states.nits], group))
-        picked = np.take_along_axis(
+        picked = None
+
+    def objective(p2o):
+        assigned = p2o != UNASSIGNED
+        chosen = picked if picked is not None else np.take_along_axis(
             costs.astype(np.float64),
-            np.where(p2o != UNASSIGNED, p2o, 0)[:, :, None], axis=2,
+            np.where(assigned, p2o, 0)[:, :, None], axis=2,
         )[:, :, 0]
-    assigned = p2o != UNASSIGNED
-    objective = np.where(assigned, picked, 0.0).sum(axis=1)
-    return batch_mod.BatchSolution(
-        person_to_object=p2o,
-        object_to_person=o2p_from_p2o(p2o, m),
-        num_unassigned=(~assigned).sum(axis=1).astype(np.int32),
-        objective=objective,
-        # lattice ε = 1 is 1/scale in original cost units
-        eps=np.full(
-            b,
-            1.0 / int_scale if int_scale is not None else float(target_eps),
-        ),
-        nits=nits,
-    )
+        return np.where(assigned, chosen, 0.0).sum(axis=1)
+
+    # lattice ε = 1 is 1/scale in original cost units
+    eps_out = 1.0 / int_scale if int_scale is not None else float(target_eps)
+    return batch_mod._batch_solution(p2o, m, objective, np.full(b, eps_out),
+                                     nits)
 
 
 def solve_batch_sharded_stream(
@@ -1077,7 +1068,8 @@ def solve_batch_sharded_stream(
     window = max(1, window)
     streams = batch_mod._window_streams(dev, window)
 
-    def dispatch(x, stream):
+    def dispatch(x, slot):
+        stream = streams[slot]
         if stream is not None:
             stream.wait_stream(torch.cuda.current_stream(dev))
         with batch_mod._on_stream(stream):
@@ -1102,38 +1094,22 @@ def solve_batch_sharded_stream(
                 objective = batch_mod._device_objective(work, st.p2o,
                                                         negate)
                 p2o, nits, done, objective = (
-                    x.cpu().numpy()[:b] for x in all_gather_parts(
+                    x[:b] for x in all_gather_parts(
                         [st.p2o, st.nits, st.done, objective], group))
-                undone = int((~done).sum())
+                undone = int((~done.cpu().numpy()).sum())
                 trace_host("fr sharded stream: rounds={} undone={}/{}",
                            rounds, undone, b)
                 if undone == 0 or rounds >= max_iterations:
                     break
                 st, _ = core(vt, st, maxit, values=work)
                 rounds += chunk
-        if int_scale is not None:
-            objective = objective / int_scale
-        return batch_mod.BatchSolution(
-            person_to_object=p2o,
-            object_to_person=o2p_from_p2o(p2o, m),
-            num_unassigned=(p2o == UNASSIGNED).sum(axis=1).astype(
-                np.int32),
-            objective=objective,
-            eps=np.full(b, out_eps),
-            nits=nits,
-        )
+            objective = objective.cpu().numpy()
+            if int_scale is not None:
+                objective = objective / int_scale
+            return batch_mod._batch_solution(p2o, m, objective,
+                                             np.full(b, out_eps), nits)
 
-    results: list = []
-    pending: deque = deque()
-    for k, x in enumerate(device_batches):
-        pending.append(dispatch(x, streams[k % window]))
-        # drain at window: at most `window` staged batches are live, and
-        # the oldest batch's readback overlaps the newer ones' rounds
-        while len(pending) >= window:
-            results.append(finish(*pending.popleft()))
-    while pending:
-        results.append(finish(*pending.popleft()))
-    return results
+    return batch_mod._pipeline(device_batches, window, dispatch, finish)
 
 
 # ----------------------------------------------------------------------
@@ -1224,19 +1200,12 @@ def solve_batch_sparse_sharded(
     while True:
         core = sharded_ksp_batch_core(group, m, budget, not maximize)
         p2o, active, nits, objective = (
-            x.cpu().numpy()[:b] for x in all_gather_parts(
+            x[:b] for x in all_gather_parts(
                 list(core(columns_l, values_l, valid_l, eps_s)), group))
-        if not active.any() or budget >= max_rounds:
+        if not active.cpu().numpy().any() or budget >= max_rounds:
             break
         # rare at m >> n: the program is stateless, so the continuation
         # solves again from scratch with a 4x budget
         budget = min(max_rounds, budget * 4)
-    assigned = p2o != UNASSIGNED
-    return batch_mod.BatchSolution(
-        person_to_object=p2o,
-        object_to_person=o2p_from_p2o(p2o, m),
-        num_unassigned=(~assigned).sum(axis=1).astype(np.int32),
-        objective=objective,
-        eps=np.full(b, eps_val),
-        nits=nits,
-    )
+    return batch_mod._batch_solution(p2o, m, objective, np.full(b, eps_val),
+                                     nits)

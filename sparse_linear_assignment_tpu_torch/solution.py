@@ -1,11 +1,11 @@
 """The solution object and the index conventions of the results.
 
-A NumPy copy of the JAX package's ``solution.py`` (the port imports
-nothing of that package), with a profiler span around the inversion:
-``int32`` indices with ``UNASSIGNED == 2**31 - 1`` marking an unassigned
-person or object, the role of the reference crate's ``I::max_value()``.
-Beside the NumPy inversion, :func:`o2p_from_p2o_device` builds the same
-map and the unassigned counts with PyTorch on the matching's device.
+A copy of the JAX package's ``solution.py`` (the port imports nothing
+of that package): ``int32`` indices with ``UNASSIGNED == 2**31 - 1``
+marking an unassigned person or object, the role of the reference
+crate's ``I::max_value()``.  In place of its NumPy inversion,
+:func:`o2p_from_p2o_device` builds object→person and the unassigned
+counts with PyTorch on the matching's device, inside a profiler span.
 """
 
 from __future__ import annotations
@@ -23,11 +23,6 @@ from .utils.trace import INVERT_SPAN, span
 UNASSIGNED: int = np.iinfo(np.int32).max
 
 INDEX_DTYPE = np.int32
-
-#: calls of each inversion: ``"host"`` counts :func:`o2p_from_p2o`,
-#: ``"device"`` :func:`o2p_from_p2o_device`
-INVERSIONS = {"device": 0, "host": 0}
-
 
 def unassigned_value(index_dtype=INDEX_DTYPE) -> int:
     """The UNASSIGNED sentinel for an index dtype: ``2**31 - 1`` for
@@ -104,32 +99,16 @@ class AuctionSolution:
         )
 
 
-def o2p_from_p2o(p2o: np.ndarray, num_cols: int) -> np.ndarray:
-    """Object→person from person→object (the matching is injective on
-    assigned pairs, so the inverse is exact).  Accepts ``[N]`` or
-    batched ``[B, N]``; unmatched objects get ``UNASSIGNED``."""
-    INVERSIONS["host"] += 1
-    with span(INVERT_SPAN):
-        p2o = np.asarray(p2o)
-        batched = p2o.ndim == 2
-        p2o2 = p2o if batched else p2o[None, :]
-        o2p = np.full((p2o2.shape[0], num_cols), UNASSIGNED, dtype=np.int32)
-        rows, cols = np.nonzero(p2o2 != UNASSIGNED)
-        o2p[rows, p2o2[rows, cols]] = cols
-        return o2p if batched else o2p[0]
-
-
 def o2p_from_p2o_device(p2o: torch.Tensor,
                         num_cols: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`o2p_from_p2o` on the matching's own device: from an int32
-    ``[B, N]`` tensor, object→person ``[B, num_cols]`` (``UNASSIGNED``
-    for unowned objects) and the unassigned persons ``[B]``, both int32
-    tensors on that device.  Equal to the NumPy inversion bit for bit,
-    where persons name one object too: the highest person index wins,
-    as NumPy's last write does (``amax``, which, unlike a plain scatter,
-    is deterministic on CUDA).  Unassigned persons scatter into a dummy
-    column ``num_cols``, sliced off."""
-    INVERSIONS["device"] += 1
+    """Object→person from person→object on the matching's own device:
+    from an int32 ``[B, N]`` tensor, object→person ``[B, num_cols]``
+    (``UNASSIGNED`` for unowned objects) and the unassigned persons
+    ``[B]``, both int32 tensors on that device.  Equal bit for bit to the
+    JAX package's NumPy inversion, where persons name one object too:
+    the highest person index wins, as NumPy's last write does (``amax``,
+    which, unlike a plain scatter, is deterministic on CUDA).  Unassigned
+    persons scatter into a dummy column ``num_cols``, sliced off."""
     with span(INVERT_SPAN):
         b, n = p2o.shape
         idx = p2o.to(torch.int64)

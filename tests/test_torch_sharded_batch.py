@@ -23,6 +23,7 @@ from scipy.optimize import linear_sum_assignment
 
 import sparse_linear_assignment_tpu.batch as jbatch
 import sparse_linear_assignment_tpu.parallel.sharded as jsh
+from sparse_linear_assignment_tpu.solution import UNASSIGNED, o2p_from_p2o
 import sparse_linear_assignment_tpu_torch as port
 from sparse_linear_assignment_tpu_torch.parallel import dryrun, sharded
 
@@ -343,6 +344,30 @@ def test_batch_sparse_sharded_validation(pool):
     columns[1, 3] = -1
     with pytest.raises(ValueError, match="at least one arc"):
         run_ranks(pool, 2, fn, columns, values, 128)
+
+
+# ----------------------------------------------------------------------
+# the batch finish
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("case", ["batched", "stream", "sparse"])
+def test_sharded_entry_points_finish_in_one_block(pool, case):
+    """Each batch-sharded entry point finishes as ``solve_batch`` does:
+    on every rank of a world of 2, the maps and the unassigned counts are
+    int32, C-contiguous views of one host block (checked on the rank,
+    before pickling), object→person is the JAX package's inversion of
+    the matching, and the result is the world of one's."""
+    fn, args, kwargs = CASES[case]()
+    got, blocks = run_ranks(pool, 2, dryrun.with_blocks, fn, *args,
+                            **kwargs)
+    assert blocks and all(blocks)
+    for sol in (got if isinstance(got, list) else [got]):
+        p2o = sol.person_to_object
+        np.testing.assert_array_equal(
+            sol.object_to_person,
+            o2p_from_p2o(p2o, sol.object_to_person.shape[1]))
+        np.testing.assert_array_equal(sol.num_unassigned,
+                                      (p2o == UNASSIGNED).sum(axis=1))
+    assert dryrun.same(got, port_case(pool, case, 1))
 
 
 # ----------------------------------------------------------------------
