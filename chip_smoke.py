@@ -320,6 +320,29 @@ def phase_stage_kernel_time(stage_mod):
     return out
 
 
+def lone_trace(fr_big, vt, work, eps, fr_init):
+    """The kernel's round log of one solve from ``fr_init`` to done, and
+    where its lone tail lies: the rounds run before the first round that
+    starts with one person unmatched, the rounds run up to the first
+    lone round that flips the mode to reverse, and the count of rounds
+    that start at cardinality S - 1 (the rounds the tail should run)."""
+    n = vt.shape[1]
+    s0 = fr_init(vt, eps)
+    rows = traced_rows(1, 100_000, 4)
+    got, done = fr_big.fr_big_chunk(vt, s0, 100_000, values=work,
+                                    trace_rows=rows)
+    assert bool(done)
+    nits = int(got.nits[0])
+    card = rows[0, :nits, 2].tolist()
+    mode = rows[0, :nits, 1].tolist()
+    before = [0] + card[:-1]  # the cardinality each round starts at
+    first = before.index(n - 1)
+    flip = next((r + 1 for r in range(first, nits)
+                 if mode[r] == 0 and (mode[r - 1] if r else 1) == 1), None)
+    return {"nits": nits, "first_lone": first, "first_reverse": flip,
+            "lone_rounds": sum(c == n - 1 for c in before)}
+
+
 def phase_big_kernel_vs_plain(batch, fr_big, fr_init):
     """The cluster kernel against its plain version, bit for bit, on
     every FRState field and the bidder-row counts: on 2048² (costs in
@@ -328,28 +351,45 @@ def phase_big_kernel_vs_plain(batch, fr_big, fr_init):
     after 7, 40 and 400 rounds, then on to done on the kernel alone
     (34,770 rounds, too many for the plain version in the time limit) and
     its price certificate; on the 4096² instance of the big-single phase
-    after 1, 2 and 3 rounds (the wide opening) and at done.  Returns the
-    4096² plain run: its time, final state and bidder rows."""
+    after 1, 2 and 3 rounds (the wide opening) and at done.  On 2048²
+    (costs in [1, 1000)) and 4096² a launch also stops inside the lone
+    tail: right before its first round (the next launch starts in the
+    tail), 1 and 37 rounds after it, and right after its first flip to
+    reverse mode; there the kernel runs each chunk a second time with
+    its round log, whose state must equal the first and whose rows must
+    equal the plain version's.  Returns the 4096² plain run: its time,
+    final state and bidder rows, and its lone tail (``lone_trace``)."""
     from sparse_linear_assignment_tpu_torch.solution import UNASSIGNED
 
     gen = torch.Generator(device="cuda")
     cases = []
 
-    def run(vt, work, eps, chunks, what, to_done=True):
+    def run(vt, work, eps, stops, what, to_done=True, traced=False):
         got = want = fr_init(vt, eps)
         rows_k = torch.zeros(1, dtype=torch.int64, device="cuda")
         rows_p = torch.zeros(1, dtype=torch.int64, device="cuda")
         total, plain_ms = 0, 0.0
-        for chunk in chunks:
-            got, _ = fr_big.fr_big_chunk(vt, got, chunk, values=work,
+        chunks = [b - a for a, b in zip([0] + stops, stops)]
+        for chunk in chunks + ([100_000] if to_done else []):
+            prev = got
+            got, _ = fr_big.fr_big_chunk(vt, prev, chunk, values=work,
                                          bid_rows=rows_k)
+            rk = rp = None
+            if traced:
+                rk, rp = traced_rows(1, chunk, 4), traced_rows(1, chunk, 4)
+                logged, _ = fr_big.fr_big_chunk(vt, prev, chunk, values=work,
+                                                trace_rows=rk)
+                bad, _ = states_equal(logged, got)
+                assert not bad, (what, total + chunk, "log on/off", bad)
             ms, (want, _) = sync_ms(lambda: fr_big.fr_big_chunk_reference(
-                vt, want, chunk, bid_rows=rows_p))
+                vt, want, chunk, bid_rows=rows_p, trace_rows=rp))
             plain_ms += ms
             total += chunk
             bad, _ = states_equal(got, want)
             if not torch.equal(rows_k, rows_p):
                 bad.append("bid_rows")
+            if traced and not torch.equal(rk, rp):
+                bad.append("round log")
             assert not bad, (what, total, bad)
             if bool(got.done[0]):
                 break
@@ -362,37 +402,54 @@ def phase_big_kernel_vs_plain(batch, fr_big, fr_init):
         assert int((got.p2o == UNASSIGNED).sum()) == 0, what
         cases.append({"case": what, "n": vt.shape[1],
                       "nits": int(got.nits[0]), "compared_nits": compared,
-                      "bid_rows": int(rows_k[0])})
+                      "stops": stops, "bid_rows": int(rows_k[0])})
         return {"plain_ms": plain_ms, "state": want,
                 "bid_rows": int(rows_p[0])}
 
+    def lone_stops(lone):
+        first = lone["first_lone"]
+        assert first + 37 < lone["nits"], lone
+        stops = [first, first + 1, first + 37, lone["first_reverse"]]
+        return [r for r in stops if r is not None]
+
+    tails = {}
     for n, hi in ((2048, 1000), (2048, 8), (2048, 2), (1152, 1000)):
         gen.manual_seed(SEED + n + hi)
         costs = torch.randint(1, hi, (1, n, n), generator=gen,
                               device="cuda", dtype=torch.int32).float()
         work = (-costs).contiguous()
         vt = work.transpose(1, 2).contiguous()
+        eps = 1.0 / (n + 1)
         if hi == 2:
-            run(vt, work, 1.0 / (n + 1), [7, 33, 360], "all costs equal",
+            run(vt, work, eps, [7, 40, 400], "all costs equal",
                 to_done=False)
+        elif (n, hi) == (2048, 1000):
+            lone = tails[n] = lone_trace(fr_big, vt, work, eps, fr_init)
+            run(vt, work, eps, sorted({7, 40, 400, *lone_stops(lone)}),
+                f"costs in [1, {hi})", traced=True)
         else:
-            run(vt, work, 1.0 / (n + 1), [7, 33, 360, 100_000],
-                f"costs in [1, {hi})")
+            run(vt, work, eps, [7, 40, 400], f"costs in [1, {hi})")
         del costs, work, vt
     n = 4096
     rng = np.random.default_rng(SEED)
     dev = torch.from_numpy(
         rng.integers(1, 1000, size=(1, n, n)).astype(np.float32)).cuda()
     vt, work, _ = batch._stage(dev, True, None)
-    plain = run(vt, work, 1.0 / (n + 1), [1, 1, 1, 100_000],
-                "the big-single 4096² instance")
+    lone = tails[n] = lone_trace(fr_big, vt, work, 1.0 / (n + 1), fr_init)
+    plain = run(vt, work, 1.0 / (n + 1), sorted({1, 2, 3, *lone_stops(lone)}),
+                "the big-single 4096² instance", traced=True)
     emit({"phase": "big_kernel_vs_plain", "kernel": "fr_big_kernel",
           "checkpoints": "after 7, 40, 400 rounds and at done (all "
                          "costs equal: a price certificate at done); "
-                         "4096²: after 1, 2, 3 rounds and at done",
-          "cases": cases, "tolerance": 0, "max_abs_err": 0.0,
-          "fields": "all FRState fields + bid_rows, bit-exact"})
-    return plain
+                         "4096²: after 1, 2, 3 rounds and at done; "
+                         "2048² [1, 1000) and 4096²: also before the "
+                         "first lone round, 1 and 37 after it and after "
+                         "its first flip to reverse, with the round log",
+          "cases": cases, "lone_tails": tails, "tolerance": 0,
+          "max_abs_err": 0.0,
+          "fields": "all FRState fields + bid_rows (+ round log rows "
+                    "where traced), bit-exact"})
+    return {**plain, "lone": lone}
 
 
 def certify_prices(work, st, eps, slack):
@@ -472,7 +529,8 @@ def phase_big_single(port, batch, fr_big, fr_kernel, fr_init, scipy_lsa):
     nits8 = int(st.nits[0])
     ms8 = event_ms(lambda: fr_big.fr_big_chunk(vt8, s8, 100_000,
                                                values=work8), reps=3)
-    k8 = {"n": n8, "nits": nits8, "ms": ms8,
+    lone8 = lone_trace(fr_big, vt8, work8, eps8, fr_init)
+    k8 = {"n": n8, "nits": nits8, "ms": ms8, "lone": lone8,
           "us_per_round": ms8 * 1e3 / nits8, **cycle_split(fr_big, cyc8)}
     emit({"phase": "big_single_8192", "n": n8,
           "costs": "integers in [1, 1000) made on the card",
@@ -488,7 +546,8 @@ def phase_big_single(port, batch, fr_big, fr_kernel, fr_init, scipy_lsa):
 
 def cycle_split(fr_big, cyc):
     """The kernel's phase counters as shares of the leader thread's round
-    cycles, the wide rounds and the cluster barriers a round."""
+    cycles (the lone tail's apart from the five phases), the wide rounds
+    and the lone rounds."""
     c = dict(zip(fr_big.PHASES, cyc.tolist()))
     total = c["total"]
     return {
@@ -497,6 +556,8 @@ def cycle_split(fr_big, cyc):
         "cycles": c,
         "wide_rounds": c["wide_rounds"],
         "wide_share": c["wide_cycles"] / total,
+        "lone_rounds": c["lone_rounds"],
+        "lone_share": c["lone_cycles"] / total,
     }
 
 
@@ -565,12 +626,23 @@ def phase_big_kernel_time(batch, fr_big, fr_init, dev, eps, plain, k8):
     barrier_ns, load_ns = pr["cluster_barrier_ns"], pr["hbm_load_ns"]
     split = cycle_split(fr_big, cyc)
     figures = {}
-    for size, ms, rounds, sp in ((n, kernel_ms, nits, split),
-                                 (k8["n"], k8["ms"], k8["nits"], k8)):
-        per_round = sp["cycles"]["barriers"] / rounds
+    for size, ms, rounds, sp, lone in (
+            (n, kernel_ms, nits, split, plain["lone"]),
+            (k8["n"], k8["ms"], k8["nits"], k8, k8["lone"])):
+        barriers = sp["cycles"]["barriers"]
+        per_round = barriers / rounds
         floor_ms = rounds * (barrier_ns * per_round + load_ns) / 1e6
+        nlone = sp["lone_rounds"]
+        # the tail runs every round that starts with one person unmatched
+        assert nlone == lone["lone_rounds"], (size, nlone, lone)
         figures[str(size)] = {
             "ms": ms, "nits": rounds, "us_per_round": ms * 1e3 / rounds,
+            "lone_rounds": nlone, "lone_cycles": sp["cycles"]["lone_cycles"],
+            "lone_share_of_time": sp["lone_share"],
+            "us_per_lone_round": ms * 1e3 * sp["lone_share"] / max(nlone, 1),
+            "us_per_other_round": ms * 1e3 * (1 - sp["lone_share"])
+            / max(rounds - nlone, 1),
+            "barriers_per_launch": barriers,
             "barriers_per_round": per_round,
             "latency_floor_ms": floor_ms,
             "us_per_round_by_phase": {

@@ -1,5 +1,5 @@
 // Forward-reverse auction rounds for ONE large dense square instance, on
-// one thread-block cluster.
+// one thread-block cluster, and the solve's lone tail on one block.
 //
 // Replaces the JAX package's Pallas TPU kernel
 // ops/pallas_fr_big.py:_fr_big_kernel (driven by fr_big_chunk).  Semantics
@@ -18,8 +18,8 @@
 //
 // The design against that latency:
 //   - one cluster of C CTAs (16, Hopper's non-portable maximum) holds the
-//     whole solve; its hardware barrier (barrier.cluster) replaces the grid
-//     barrier, four a round;
+//     solve until its lone tail; its hardware barrier (barrier.cluster)
+//     replaces the grid barrier, four a round;
 //   - the state lives in the cluster's distributed shared memory: CTA k
 //     owns the indices [k w, (k+1) w), w = S / C, on both sides (prices,
 //     profits, p2o, o2p, conflict keys, per-bidder argbest and floor, the
@@ -67,6 +67,34 @@
 // (pass_rows, sized by the planner), steps 1-2 repeat per pass, with two
 // more barriers each.
 //
+// The lone tail.  A square instance with one person unmatched has one
+// free object too, so a round has exactly one bidder in either mode: its
+// bid takes the free item (the matching is full) or evicts the item's
+// owner, who bids next; a mode flip makes the free item of the other side
+// the bidder.  Once a round would start with one bidder, every later round
+// does, to the end of the solve (79% of the rounds of a 4096² solve), and
+// needs no barrier, merge or conflict key: one row read and one exact
+// top-2.  So at the top of a round that would have one bidder (the words
+// every CTA shares after barrier 4, or at entry), the cluster stops, writes
+// the state back as at the end of its budget and leaves the launch's
+// remaining rounds in meta[5]; a second kernel, one block of 512 threads
+// launched behind it, runs them:
+//   - entry: both sides' prices and profits (8 S bytes) into shared
+//     memory; the lone person and object found by a scan of p2o and o2p;
+//   - a round: the bidder's row in 16-byte loads all in flight, less the
+//     priced-side vector; the exact top-2 per lane, over the warp
+//     (top2_warp_redux) and over the warps; thread 0 applies the bid with
+//     the arithmetic of steps 3-4 (price plus increment, the new owner,
+//     the evicted owner unassigned, the bidder's floor - eps; the owner
+//     maps stay in global memory, one dependent load and two or three
+//     stores a round), then step 5's control, and names the next bidder;
+//   - exit (done, or the budget): prices and profits back to global memory.
+// The tail runs where its 8 S bytes fit one block's shared memory (the
+// planner's `lone_tail`, the same test here); otherwise every round runs
+// on the cluster.  A kernel of its own: inside the cluster kernel, inlined
+// or not, the tail's code slowed the cluster's own rounds by 4-15% at
+// 2048²-8192² on an H100, where this split leaves them as they were.
+//
 // Float arithmetic is adds and subtracts only, in the JAX association
 // order, so the result is bit-identical to the plain version.  Build
 // without --use_fast_math.
@@ -104,8 +132,16 @@ constexpr int kProfBarrier = 4;    // waiting in barriers
 constexpr int kProfTotal = 5;      // whole rounds
 constexpr int kProfWideRounds = 6; // rounds with more than kWide bidders
 constexpr int kProfWideCycles = 7; // their cycles
-constexpr int kProfBarriers = 8;   // cluster barriers passed
-constexpr int kProfWords = 9;
+constexpr int kProfLoneRounds = 8; // rounds of the lone tail
+constexpr int kProfLoneCycles = 9; // the tail kernel's cycles
+constexpr int kProfBarriers = 10;  // cluster barriers passed
+constexpr int kProfWords = 11;
+
+// shared memory one block can use on Hopper, and what the lone tail keeps
+// free of it for its static words (ops/fr_big.py: MAX_SMEM_BYTES,
+// STATIC_SMEM_BYTES)
+constexpr int kMaxSmemBytes = 232448;
+constexpr int kStaticSmemBytes = 1024;
 
 struct Args {
   const float* vals;    // [S, S] person-major values
@@ -115,7 +151,8 @@ struct Args {
   int32_t* p2o;         // [S]
   int32_t* o2p;         // [S]
   const float* eps;     // [1]
-  int32_t* meta;        // nits, forward_mode, done, since_inc, stall_k
+  int32_t* meta;        // nits, forward_mode, done, since_inc, stall_k,
+                        // then the rounds the lone tail takes over
   long long* bid_rows;  // [1] or null
   long long* prof;      // [kProfWords] or null
   int32_t* trace;       // [rounds, 4] round log (ops/round_log.py) or null
@@ -123,6 +160,7 @@ struct Args {
   int w;          // slice width, S / cluster size
   int pass_rows;  // bidders whose partials one pass holds
   int rounds;
+  int lone;       // the lone tail kernel runs behind this launch
 };
 
 // One bidder's top-2 over one CTA's segment of its row.
@@ -283,7 +321,12 @@ __global__ void __launch_bounds__(kThreads, 1) fr_big_cluster_kernel(Args a) {
   long long rows_read = 0;
   const float eps_v = *a.eps;
   const float ninf = Traits<float>::neg_inf();
+  int lone_rounds = 0;  // the rounds left to the lone tail kernel
   for (int it = 0; it < a.rounds; ++it) {
+    if (a.lone && pref[kind][C] == 1) {
+      lone_rounds = a.rounds - it;
+      break;
+    }
     long long round_start = 0;
     if (timing) round_start = mark = clock64();
     const bool fwd = mode != 0;
@@ -523,11 +566,178 @@ __global__ void __launch_bounds__(kThreads, 1) fr_big_cluster_kernel(Args a) {
     a.meta[2] = done;
     a.meta[3] = since;
     a.meta[4] = stallk;
+    a.meta[5] = lone_rounds;
     if (a.bid_rows) *a.bid_rows += rows_read;
   }
   if (timing) {
 #pragma unroll
     for (int k = 0; k < kProfWords; ++k) a.prof[k] += acc[k];
+  }
+}
+
+// The lone tail (see the header): the `meta[5]` rounds the cluster left,
+// on one block, from the state the cluster wrote back.  Nothing to do when
+// meta[5] is 0 (the cluster did not reach the tail in its budget, or the
+// solve was done at entry).  Dynamic shared memory: prices and profits,
+// 8 S bytes.
+template <bool kTrace>
+__global__ void __launch_bounds__(kThreads, 1) fr_big_lone_kernel(Args a) {
+  const int left = a.meta[5];
+  if (left <= 0) return;
+  const int S = a.S, S4 = a.S / 4;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* gp = reinterpret_cast<float*>(smem);  // prices [S]
+  float* gq = gp + S;                          // profits [S]
+  __shared__ Partial wtop[kWarps];  // each warp's top-2
+  __shared__ int bidder, fwd_mode, finished, person0, object0;
+
+  const bool timing = a.prof != nullptr && tid == 0;
+  long long start = 0;
+  if (timing) start = clock64();
+  for (int v = tid; v < S4; v += kThreads) {
+    reinterpret_cast<float4*>(gp)[v] =
+        reinterpret_cast<const float4*>(a.prices)[v];
+    reinterpret_cast<float4*>(gq)[v] =
+        reinterpret_cast<const float4*>(a.profits)[v];
+  }
+  // the one unmatched person and the one free object
+  for (int i = tid; i < S; i += kThreads) {
+    if (a.p2o[i] == kUnassigned) person0 = i;
+    if (a.o2p[i] == kUnassigned) object0 = i;
+  }
+  __syncthreads();
+  // thread 0 keeps the control state and names each round's bidder
+  int nits = a.meta[0], mode = a.meta[1], since = a.meta[3];
+  int stallk = a.meta[4];
+  int card = S - 1, done = 0, rounds = 0;
+  int person = person0, object = object0;
+  if (tid == 0) {
+    bidder = mode ? person : object;
+    fwd_mode = mode;
+    finished = 0;
+  }
+  __syncthreads();
+  const float eps_v = *a.eps;
+  const float ninf = Traits<float>::neg_inf();
+  // the launch's round index of the tail's first round (the round log's row)
+  for (int it = a.rounds - left; it < a.rounds; ++it) {
+    const bool fwd = fwd_mode != 0;
+    const int c = bidder;
+    const float4* row4 = reinterpret_cast<const float4*>(
+        (fwd ? a.vals : a.vals_t) + static_cast<size_t>(c) * S);
+    const float4* rp4 = reinterpret_cast<const float4*>(fwd ? gp : gq);
+    float b = ninf, s = ninf;
+    int j = kUnassigned;
+    // ascending positions in each thread: the strict > of top2_take keeps
+    // the smallest index among equal maxima
+    for (int v0 = 0; v0 < S4; v0 += kThreads * kLoadsInFlight) {
+      float4 x[kLoadsInFlight];
+#pragma unroll
+      for (int u = 0; u < kLoadsInFlight; ++u) {
+        const int v = v0 + u * kThreads + tid;
+        if (v < S4) x[u] = __ldg(row4 + v);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadsInFlight; ++u) {
+        const int v = v0 + u * kThreads + tid;
+        if (v < S4) {
+          const float4 p = rp4[v];
+          top2_take(x[u].x - p.x, 4 * v, b, s, j);
+          top2_take(x[u].y - p.y, 4 * v + 1, b, s, j);
+          top2_take(x[u].z - p.z, 4 * v + 2, b, s, j);
+          top2_take(x[u].w - p.w, 4 * v + 3, b, s, j);
+        }
+      }
+    }
+    top2_warp_redux(b, s, j);
+    if (lane == 0) wtop[wid] = Partial{b, s, j, c};
+    __syncthreads();
+    if (wid == 0) {
+      b = ninf;
+      s = ninf;
+      j = kUnassigned;
+      if (lane < kWarps) {
+        b = wtop[lane].best;
+        s = wtop[lane].second;
+        j = wtop[lane].arg;
+      }
+      top2_warp_redux(b, s, j);
+    }
+    if (tid == 0) {
+      // steps 3-4 for one bidder: it wins its item outright
+      float* rowp = fwd ? gp : gq;
+      float* colpi = fwd ? gq : gp;
+      int32_t* colp2o = fwd ? a.p2o : a.o2p;
+      int32_t* rowo2p = fwd ? a.o2p : a.p2o;
+      int delta = 0;
+      if (b != ninf) {
+        const float floor = s != ninf ? s : b;
+        const float inc = b - floor + eps_v;
+        rowp[j] = rowp[j] + inc;
+        colpi[c] = floor - eps_v;
+        const int32_t prev = rowo2p[j];
+        rowo2p[j] = c;
+        colp2o[c] = j;
+        if (prev == kUnassigned) {
+          delta = 1;
+        } else {
+          colp2o[prev] = kUnassigned;
+          if (fwd) {
+            person = prev;
+          } else {
+            object = prev;
+          }
+        }
+      }
+      // 5. control, as in the cluster's rounds
+      card += delta;
+      const bool increased = delta > 0;
+      const bool stall_flip = !increased && (since + 1 >= stallk);
+      const bool flip = increased || stall_flip;
+      mode ^= flip ? 1 : 0;
+      since = flip ? 0 : since + 1;
+      stallk = increased
+                   ? kStallK0
+                   : (stall_flip ? static_cast<int32_t>(
+                                       static_cast<uint32_t>(stallk) * 2u)
+                                 : stallk);
+      nits += 1;
+      done = card == S;
+      ++rounds;
+      if constexpr (kTrace) {
+        int32_t* row = a.trace + static_cast<size_t>(it) * 4;
+        row[0] = nits;
+        row[1] = mode;
+        row[2] = card;
+        row[3] = done;
+      }
+      bidder = mode ? person : object;
+      fwd_mode = mode;
+      finished = done;
+    }
+    __syncthreads();
+    if (finished) break;
+  }
+  for (int v = tid; v < S4; v += kThreads) {
+    reinterpret_cast<float4*>(a.prices)[v] =
+        reinterpret_cast<float4*>(gp)[v];
+    reinterpret_cast<float4*>(a.profits)[v] =
+        reinterpret_cast<float4*>(gq)[v];
+  }
+  if (tid == 0) {
+    a.meta[0] = nits;
+    a.meta[1] = mode;
+    a.meta[2] = done;
+    a.meta[3] = since;
+    a.meta[4] = stallk;
+    if (a.bid_rows) *a.bid_rows += rounds;
+    if (timing) {
+      const long long cyc = clock64() - start;
+      a.prof[kProfTotal] += cyc;
+      a.prof[kProfLoneRounds] += rounds;
+      a.prof[kProfLoneCycles] += cyc;
+    }
   }
 }
 
@@ -613,6 +823,16 @@ cudaError_t launch_kernel(const Args& a, int cluster, int smem,
   if (err != cudaSuccess) return err;
   err = cudaLaunchKernelEx(&cfg, fr_big_cluster_kernel<R, kTrace>, a);
   if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !a.lone) return err;
+  // the lone tail, behind the cluster on the same stream
+  const int tail_smem = static_cast<int>(2 * sizeof(float)) * a.S;
+  err = cudaFuncSetAttribute(fr_big_lone_kernel<kTrace>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             tail_smem);
+  if (err != cudaSuccess) return err;
+  fr_big_lone_kernel<kTrace><<<1, kThreads, tail_smem,
+                               static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }
 
@@ -625,10 +845,13 @@ cudaError_t launch_rounds(const Args& a, int cluster, int smem,
 
 }  // namespace
 
-// One cluster launch of up to `rounds` rounds.  Pointers are device
-// pointers of contiguous tensors; bid_rows, prof and the round log trace
-// [rounds, 4] (int32: nits, mode, cardinality, done after each round run)
-// may be null.  The launch shape comes from the planner
+// One cluster launch of up to `rounds` rounds, with the lone tail kernel
+// behind it where the tail fits (the two run `rounds` rounds together).
+// Pointers are device pointers of contiguous tensors; meta is int32 [6]
+// (nits, forward_mode, done, since_inc, stall_k, then a word the two
+// kernels pass between them, 0 on entry); bid_rows, prof and the round log
+// trace [rounds, 4] (int32: nits, mode, cardinality, done after each round
+// run) may be null.  The launch shape comes from the planner
 // (ops/fr_big.py:plan): `cluster` CTAs of `width` = S / cluster indices
 // each, `rows_per_step` bidders a warp step (1, 2, 4 or 8), `pass_rows`
 // partials a pass and `smem` bytes of dynamic shared memory.  Returns the
@@ -661,6 +884,9 @@ extern "C" int slap_fr_big_rounds(const void* vals, const void* vals_t,
   a.w = width;
   a.pass_rows = pass_rows;
   a.rounds = rounds;
+  // the planner's lone_tail: prices and profits in one block
+  a.lone = 2 * static_cast<long long>(sizeof(float)) * S <=
+           kMaxSmemBytes - kStaticSmemBytes;
   cudaError_t err;
   switch (rows_per_step) {
     case 1: err = launch_rounds<1>(a, cluster, smem, stream); break;

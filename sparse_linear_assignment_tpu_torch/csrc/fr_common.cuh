@@ -1,8 +1,9 @@
 // Pieces shared by the auction kernels (fr_kernel.cu, fr_big_kernel.cu,
 // ksp_kernel.cu): the sentinels, the order-preserving value images, the
 // float top-2 with its tie rule (a lane's running top-2, the warp merge,
-// both also in a form that carries the row's value at argbest, the
-// warp-wide top2), the 64-bit conflict key, and a warp's list append.
+// both also in a form that carries the row's value at argbest, the warp
+// merge in three redux.sync, the warp-wide top2), the 64-bit conflict
+// key, and a warp's list append.
 
 #pragma once
 
@@ -86,6 +87,25 @@ __device__ __forceinline__ void top2_warp_merge(float& b, float& s, int& j) {
     b = take1 ? b : b2;
     j = take1 ? j : j2;
   }
+}
+
+// The warp's top-2 from each lane's top-2 of disjoint positions, in three
+// redux.sync: the best (a max of order images), the smallest argbest of
+// the lanes holding it, and the second as the max over the lanes of the
+// best they hold outside argbest (their second for the lane whose own
+// argbest it is, their best for every other lane).  Max and min are exact
+// and order-free: this equals top2_warp_merge but for the sign of a zero
+// best or second.
+__device__ __forceinline__ void top2_warp_redux(float& b, float& s, int& j) {
+  const float best = Traits<float>::unorder(
+      __reduce_max_sync(kFull, Traits<float>::order(b)));
+  const int arg = static_cast<int>(__reduce_min_sync(
+      kFull, b == best ? static_cast<uint32_t>(j) : 0xffffffffu));
+  const float other = j == arg ? s : b;
+  s = Traits<float>::unorder(
+      __reduce_max_sync(kFull, Traits<float>::order(other)));
+  b = best;
+  j = arg;
 }
 
 // top2_take that also keeps `raw`, the row's value at the lane's best

@@ -24,9 +24,9 @@ every SM with three grid barriers a round, one warp walking each 16 KB
 row in 128 dependent steps and the state in global memory, took 17.3 µs
 a round.  The design against that latency:
 
-- one cluster of up to 16 CTAs holds the whole solve, with the round
-  loop inside; a hardware cluster barrier replaces the grid barrier,
-  four a round;
+- one cluster of up to 16 CTAs holds the solve until its lone tail,
+  with the round loop inside; a hardware cluster barrier replaces the
+  grid barrier, four a round;
 - the state lives in the cluster's distributed shared memory, each CTA
   owning one slice of ``S / C`` indices on both sides, loaded from the
   state tensors at entry and written back at exit;
@@ -35,15 +35,28 @@ a round.  The design against that latency:
   step with every load in flight, so a round costs about one load
   latency; the partial top-2s merge exactly with 32-bit atomics on the
   bidder owner's shared memory;
-- the rest of a round is one pass over each CTA's own slice.
+- the rest of a round is one pass over each CTA's own slice;
+- the lone tail: once a round would start with one person unmatched (a
+  square instance then has one bidder in either mode, and keeps one to
+  the end of the solve: 79% of a 4096² solve's rounds), the cluster
+  stops and a second kernel, one block of 512 threads launched behind
+  it, runs the launch's remaining rounds with block barriers only: it
+  holds both sides' prices and profits in shared memory, reads the
+  bidder's row in one pass of 16-byte loads, takes the exact top-2 over
+  its threads and applies the bid with the same arithmetic.  It runs
+  where ``plan(S).lone_tail`` says its ``8 S`` bytes fit one block (S
+  up to 28,928), from what the kernels observe alone: no option turns
+  it on or off.
 
 :func:`plan` sizes the launch (cluster size, slice width, bidders a
-warp step, partials a pass, shared-memory bytes) and raises when an
-instance does not fit.  With tracing on (``SLAP_TPU_DEBUG``) or
-``trace_rows`` given, the cluster's leader thread logs one row a round
+warp step, partials a pass, shared-memory bytes, whether the lone tail
+runs) and raises when an instance does not fit.  With tracing on
+(``SLAP_TPU_DEBUG``) or ``trace_rows`` given, the cluster's leader
+thread, then the tail's first thread, logs one row a round
 (``ops/round_log.py``).  On CPU tensors :func:`fr_big_chunk` runs the
 plain PyTorch version :func:`fr_big_chunk_reference`; on CUDA tensors it
-launches the kernel or raises.  ``LAUNCHES`` counts the launches.
+launches the kernels or raises.  ``LAUNCHES`` counts the launches (a
+cluster launch with its tail kernel behind it counts once).
 """
 
 from __future__ import annotations
@@ -81,7 +94,7 @@ STATE_BYTES_PER_INDEX = 56
 #: bytes of one bidder's partial top-2 (best, second, argbest, bidder)
 PARTIAL_BYTES = 16
 
-#: the kernel's static shared memory (control words), kept free
+#: the kernels' static shared memory (control words), kept free
 STATIC_SMEM_BYTES = 1024
 
 #: fewest bidder rows one pass of partials must hold (fewer would split
@@ -92,10 +105,18 @@ MIN_PASS_ROWS = 1024
 #: kLoadsInFlight)
 LOADS_IN_FLIGHT = 8
 
+#: bytes of the lone tail's state per index of the side, in the shared
+#: memory of its one block: a price and a profit
+LONE_BYTES_PER_INDEX = 8
+
 #: the phase counters of ``phase_cycles``, in order: leader-thread
-#: clock64 cycles summed over rounds
+#: clock64 cycles summed over rounds; ``lone_rounds`` counts the rounds
+#: of the lone tail and ``lone_cycles`` its kernel's cycles, its entry and
+#: exit included (also in ``total``, and in none of the five phases
+#: before it); ``barriers`` counts cluster barriers
 PHASES = ("rows", "merge_bid", "apply", "control", "barrier_wait",
-          "total", "wide_rounds", "wide_cycles", "barriers")
+          "total", "wide_rounds", "wide_cycles", "lone_rounds",
+          "lone_cycles", "barriers")
 
 _lib = None
 
@@ -106,6 +127,7 @@ class Plan(NamedTuple):
     rows_per_step: int  # bidders a warp walks at once
     pass_rows: int      # bidders whose partials one pass holds
     smem_bytes: int     # dynamic shared memory of a CTA
+    lone_tail: bool     # the lone tail's prices and profits fit one block
 
 
 def plan(S: int, smem_per_block: Optional[int] = None,
@@ -114,8 +136,10 @@ def plan(S: int, smem_per_block: Optional[int] = None,
     CTAs where ``max_cluster`` allows it, else 8; a warp walks as many
     bidders at once as keep ``LOADS_IN_FLIGHT`` float4 loads a lane in
     flight; the partials take what shared memory the state leaves, up to
-    one per row.  Raises ``ValueError`` naming the limit when ``S`` does
-    not fit.  ``smem_per_block`` defaults to ``MAX_SMEM_BYTES``."""
+    one per row; the lone tail runs where its ``LONE_BYTES_PER_INDEX * S``
+    bytes fit one block (the kernels test the same bytes).  Raises
+    ``ValueError`` naming the limit when ``S`` does not fit.
+    ``smem_per_block`` defaults to ``MAX_SMEM_BYTES``."""
     if smem_per_block is None:
         smem_per_block = MAX_SMEM_BYTES
     if max_cluster >= 16:
@@ -146,7 +170,9 @@ def plan(S: int, smem_per_block: Optional[int] = None,
     rows = LOADS_IN_FLIGHT
     while rows > 1 and rows * loads > LOADS_IN_FLIGHT:
         rows //= 2
-    return Plan(c, w, rows, pass_rows, state + PARTIAL_BYTES * pass_rows)
+    return Plan(c, w, rows, pass_rows, state + PARTIAL_BYTES * pass_rows,
+                LONE_BYTES_PER_INDEX * S
+                <= smem_per_block - STATIC_SMEM_BYTES)
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -239,6 +265,8 @@ def _fr_big_chunk_cuda(values_t, state, rounds, values, bid_rows,
     if v.shape != vt.shape or v.dtype != vt.dtype or v.device != vt.device:
         raise ValueError("values must be values_t's transpose")
     prices, profits, p2o, o2p, eps, meta = kernel_state(state, vt.dtype)
+    # a sixth word: the rounds the cluster leaves to the lone tail kernel
+    meta = torch.cat([meta, meta.new_zeros((1, 1))], dim=1)
     check_bid_rows(bid_rows, 1, vt.device)
     if phase_cycles is not None and (
         phase_cycles.dtype != torch.int64

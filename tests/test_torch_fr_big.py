@@ -205,18 +205,19 @@ def test_big_single_round_limit_matches_jax(big_costs, monkeypatch,
 
 # The cluster kernel's launch shape, as the planner gives it to the
 # kernel: (cluster, slice width, bidders a warp step, partials a pass,
-# dynamic shared-memory bytes = 56 * width + 16 * pass_rows).
+# dynamic shared-memory bytes = 56 * width + 16 * pass_rows, whether the
+# lone tail's 8 * S bytes fit one block's shared memory).
 @pytest.mark.parametrize("max_cluster,n,want", [
-    (16, 1152, (16, 72, 8, 1152, 22464)),
-    (16, 2048, (16, 128, 8, 2048, 39936)),
-    (16, 4096, (16, 256, 4, 4096, 79872)),
-    (16, 8192, (16, 512, 2, 8192, 159744)),
-    (16, 16384, (16, 1024, 1, 10880, 231424)),
-    (8, 1152, (8, 144, 4, 1152, 26496)),
-    (8, 2048, (8, 256, 4, 2048, 47104)),
-    (8, 4096, (8, 512, 2, 4096, 94208)),
-    (8, 8192, (8, 1024, 1, 8192, 188416)),
-    (8, 16384, (8, 2048, 1, 7296, 231424)),
+    (16, 1152, (16, 72, 8, 1152, 22464, True)),
+    (16, 2048, (16, 128, 8, 2048, 39936, True)),
+    (16, 4096, (16, 256, 4, 4096, 79872, True)),
+    (16, 8192, (16, 512, 2, 8192, 159744, True)),
+    (16, 16384, (16, 1024, 1, 10880, 231424, True)),
+    (8, 1152, (8, 144, 4, 1152, 26496, True)),
+    (8, 2048, (8, 256, 4, 2048, 47104, True)),
+    (8, 4096, (8, 512, 2, 4096, 94208, True)),
+    (8, 8192, (8, 1024, 1, 8192, 188416, True)),
+    (8, 16384, (8, 2048, 1, 7296, 231424, True)),
 ])
 def test_plan_pins_the_launch_shape(max_cluster, n, want):
     got = fr_big.plan(n, max_cluster=max_cluster)
@@ -227,6 +228,63 @@ def test_plan_pins_the_launch_shape(max_cluster, n, want):
     loads = -(-got.width // 128)
     assert got.rows_per_step == 1 or (
         got.rows_per_step * loads <= fr_big.LOADS_IN_FLIGHT)
+
+
+# The largest side whose lone tail still fits: above it every round runs
+# on the whole cluster (the kernels test the same bytes).
+@pytest.mark.parametrize("max_cluster,largest", [(16, 28928), (8, 28928)])
+def test_plan_lone_tail_fits_up_to_its_largest_side(max_cluster, largest):
+    step = 4 * max_cluster
+    for n in (largest - step, largest, largest + step, largest + 2 * step):
+        got = fr_big.plan(n, max_cluster=max_cluster)
+        fits = (fr_big.LONE_BYTES_PER_INDEX * n
+                <= fr_big.MAX_SMEM_BYTES - fr_big.STATIC_SMEM_BYTES)
+        assert got.lone_tail == fits == (n <= largest), n
+    # every side up to it has the tail
+    assert all(fr_big.plan(n, max_cluster=max_cluster).lone_tail
+               for n in range(step, largest + 1, step))
+
+
+def test_phases_name_the_lone_tail_counters():
+    assert fr_big.PHASES == (
+        "rows", "merge_bid", "apply", "control", "barrier_wait", "total",
+        "wide_rounds", "wide_cycles", "lone_rounds", "lone_cycles",
+        "barriers")
+    # the wrapper's shape check takes len(PHASES) words, no fewer
+    n = 128
+    tv = torch.zeros((1, n, n), dtype=torch.float32)
+    s0 = batch.fr_init(tv, 1.0 / n)
+    with pytest.raises(ValueError, match=r"int64 \[11\] tensor"):
+        fr_big._fr_big_chunk_cuda(
+            tv, s0, 1, None, None,
+            torch.zeros(9, dtype=torch.int64), None)
+
+
+@pytest.mark.parametrize("seed,n", [(7, 256), (12, 256), (8, 384),
+                                    (11, 1152)])
+def test_plain_rounds_keep_one_bidder_once_one_person_is_unmatched(seed, n):
+    """What the kernel's lone tail rests on, on the plain rounds: once a
+    round starts with one person unmatched, every later round does too,
+    until the round that fills the matching ends the solve; and a
+    round's bidders are the S - card unmatched of the mode's side, in
+    either mode (so one, in the tail)."""
+    rng = np.random.default_rng(seed)
+    tv = torch.from_numpy(
+        -rng.integers(1, 1000, size=(1, n, n)).astype(np.float32))
+    s0 = batch.fr_init(tv, 1.0 / (n + 1))
+    rows = torch.zeros((1, 2000, 4), dtype=torch.int32)
+    bid_rows = torch.zeros(1, dtype=torch.int64)
+    got, done = fr_big.fr_big_chunk_reference(
+        tv, s0, 2000, bid_rows=bid_rows, trace_rows=rows)
+    assert bool(done)
+    nits = int(got.nits[0])
+    card = rows[0, :nits, 2].tolist()
+    before = [0] + card[:-1]  # the cardinality each round starts at
+    first = before.index(n - 1)
+    assert before[first:] == [n - 1] * (nits - first)
+    assert card[-1] == n
+    assert rows[0, :nits, 3].tolist() == [0] * (nits - 1) + [1]
+    assert int(bid_rows[0]) == sum(n - c for c in before)
 
 
 @pytest.mark.parametrize("max_cluster", [8, 16])
