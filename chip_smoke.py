@@ -1389,6 +1389,168 @@ def phase_ksp_arcs(port, batch, ka, ksp):
 
 
 # ----------------------------------------------------------------------
+# the eps-scaling ladder on the arcs (scale_eps)
+# ----------------------------------------------------------------------
+#: the benchmark cell whose batch the ladder phase runs, and its eps
+CONFIG_A_CELL = "ksparse-crate-a.b128x2-n10000"
+CONFIG_A_EPS = 2.0 ** -15 / (10_000 + 1)
+
+
+def config_a_arcs(gen, b, n, k, config):
+    """A batch of the reference crate's config A law on the card, made by
+    the benchmark's own generator (``benchmark/gen/ksparse_symmetric.py``)
+    from the CUDA generator ``gen``."""
+    from benchmark import plugins
+
+    return plugins.load_module("gen", "ksparse_symmetric")._batch(
+        gen, b, n, k, config, "cuda")
+
+
+def padded_scipy_objective(cols, vals, m):
+    """``min_weight_full_bipartite_matching``'s optimum of one instance's
+    arcs with ``-1`` pads (float32 values on the 2^-15 lattice: the
+    float64 sum is exact)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import min_weight_full_bipartite_matching
+
+    ok = cols >= 0
+    mat = csr_matrix((vals[ok].astype(np.float64), cols[ok].astype(np.int64),
+                      np.concatenate([[0], np.cumsum(ok.sum(axis=1))])),
+                     shape=(cols.shape[0], m))
+    rows, picked = min_weight_full_bipartite_matching(mat)
+    return float(np.asarray(mat[rows, picked]).sum())
+
+
+def ladders_differ(a, b):
+    """The fields in which two ``(states, ladder)`` results differ."""
+    return (arcs_states_differ(a[0], b[0])
+            + [k for k in a[1]._fields
+               if not torch.equal(getattr(a[1], k), getattr(b[1], k))])
+
+
+def phase_ksp_ladder(port, batch, ka):
+    """The ladder kernel bit-equal to its plain version on small square
+    batches in both value types (rows of 8 to 176 slots), whole, stopped
+    and continued; one batch of the config A cell (128 instances of
+    10,000², about 101 arcs a person in 176 slots, eps = 2^-15 / 10,001)
+    staged with ``scale_eps`` and solved through the stream: its
+    launches, the kernel's time on the batch beside its bound, rounds by
+    phase; the batch's quickest, median and slowest instances, as the
+    kernel's one launch over the whole batch left them, bit-equal to the
+    plain version run on those three alone (both timed on those three),
+    and scipy's optimum on each of them."""
+    from benchmark import plugins
+
+    cell = plugins.cell(CONFIG_A_CELL)
+    config = cell.config
+    gen = torch.Generator(device="cuda")
+    small = 0
+    for seed, (b, n, k, density, integer) in enumerate([
+            (4, 64, 8, 0.05, True), (4, 64, 40, 0.3, False),
+            (5, 200, 48, 0.1, False), (3, 300, 176, 0.3, False),
+            (4, 256, 40, 0.04, True)]):
+        gen.manual_seed(SEED + 400 + seed)
+        cols, vals = config_a_arcs(gen, b, n, k,
+                                   dict(config, density=density))
+        if integer:  # ε = 1/(n+1) in float32: its own kernel instance
+            vals = torch.where(cols >= 0, vals.floor(), 0.0)
+        eps = 1.0 / (n + 1) if integer else 2.0 ** -15 / (n + 1)
+        st = port.stage_batch_sparse_device(cols, vals, n, eps=eps,
+                                            scale_eps=True)
+        assert st.work_device.dtype == (torch.float32 if integer
+                                        else torch.float64)
+        c, w = st.columns_device, st.work_device
+        s0 = ka.arcs_init(w, n)
+        for rounds in (1, 7, 300, 1 << 18):
+            got = ka.ksp_arcs_ladder(c, w, s0, st.ladder, eps, n, rounds)
+            want = ka.ksp_arcs_ladder_reference(c, w, s0, st.ladder, eps,
+                                                n, rounds)
+            part = ka.ksp_arcs_ladder(c, w, s0, st.ladder, eps, n, 5)
+            part = ka.ksp_arcs_ladder(c, w, *part, eps, n, rounds)
+            whole = ka.ksp_arcs_ladder(c, w, s0, st.ladder, eps, n,
+                                       rounds + 5)
+            bad = ladders_differ(got, want) + ladders_differ(part, whole)
+            assert not bad, ("ladder kernel, small case", seed, rounds, bad)
+            small += 1
+        assert not bool(ksp_active(got[0]).any()), "a small ladder undone"
+
+    # the cell's batch, through the entry points
+    spec = cell.spec
+    n, b, k = spec["rows"], spec["batch"], spec["arcs"]
+    gen.manual_seed(SEED + 420)
+    cols, vals = config_a_arcs(gen, b, n, k, config)
+    stage_ms, st = sync_ms(lambda: port.stage_batch_sparse_device(
+        cols, vals, n, eps=CONFIG_A_EPS, scale_eps=True))
+    assert st.ladder is not None and st.work_device.dtype == torch.float64
+    before = ka.LADDER_LAUNCHES
+    arcs_before = ka.LAUNCHES
+    solve_ms, sol = sync_ms(
+        lambda: port.solve_batch_sparse_stream([st], window=1)[0])
+    launches = ka.LADDER_LAUNCHES - before
+    assert launches == 1 and ka.LAUNCHES == arcs_before, launches
+    assert int(sol.num_unassigned.sum()) == 0, "unassigned persons"
+    assert np.array_equal(sol.rounds_by_phase.sum(axis=1), sol.nits)
+    # the kernel from the initial state, one launch of the route's budget
+    # over the whole batch
+    c, w = st.columns_device, st.work_device
+    budget = batch._SPARSE_LADDER_BUDGET
+    s0 = ka.arcs_init(w, n)
+    kernel_ms = event_ms(lambda: ka.ksp_arcs_ladder(
+        c, w, s0, st.ladder, CONFIG_A_EPS, n, budget), reps=3)
+    got = ka.ksp_arcs_ladder(c, w, s0, st.ladder, CONFIG_A_EPS, n, budget)
+    assert np.array_equal(got[0].p2o.cpu().numpy(), sol.person_to_object)
+    # the arcs as stored read once (int32 columns, float64 values), p2o,
+    # dropped, the prices and nits written once
+    bytes_once = b * n * k * 12 + b * n * (4 + 1 + 8) + b * 4
+    bound_ms = bytes_once / HBM_BYTES_PER_S * 1e3
+    # three instances at their batch indices: the plain version on them
+    # alone against the batch launch's rows, both timed on the three
+    order = np.argsort(sol.nits, kind="stable")
+    picks = [int(order[0]), int(order[len(order) // 2]), int(order[-1])]
+    at = torch.tensor(picks, device="cuda")
+    c3, w3 = c[at].contiguous(), w[at].contiguous()
+    lad3 = ka.Ladder(*(x[at].contiguous() for x in st.ladder))
+    s3 = ka.arcs_init(w3, n)
+    plain_ms, want = sync_ms(lambda: ka.ksp_arcs_ladder_reference(
+        c3, w3, s3, lad3, CONFIG_A_EPS, n, budget))
+    picked_ms = event_ms(lambda: ka.ksp_arcs_ladder(
+        c3, w3, s3, lad3, CONFIG_A_EPS, n, budget), reps=1)
+    rows = (got[0]._replace(**{f: getattr(got[0], f)[at]
+                               for f in ARCS_FIELDS}),
+            ka.Ladder(*(x[at] for x in got[1])))
+    bad = ladders_differ(rows, want)
+    assert not bad, ("ladder kernel at config A", picks, bad)
+    c_host, v_host = cols.cpu().numpy(), vals.cpu().numpy()
+    for i in picks:
+        assert sol.objective[i] == padded_scipy_objective(
+            c_host[i], v_host[i], n), ("config A optimum", i)
+    rbp = sol.rounds_by_phase
+    emit({"phase": "ksp_ladder", "config": "reference crate config A",
+          "cell": CONFIG_A_CELL, "shape": [b, n, n, k], "eps": CONFIG_A_EPS,
+          "dtype": "float64", "small_cases": small,
+          "arcs_mean": float((cols >= 0).sum(dim=2).float().mean()),
+          "stage_ms": stage_ms, "first_solve_ms": solve_ms,
+          "ladder_launches": launches, "ms": kernel_ms,
+          "bound_ms": bound_ms, "bound_by": "bytes",
+          "roofline_pct": 100.0 * bound_ms / kernel_ms,
+          "nits_p50": float(np.median(sol.nits)),
+          "nits_max": int(sol.nits.max()), "nits_min": int(sol.nits.min()),
+          "phases": int(rbp.shape[1]),
+          "rounds_by_phase_max": rbp.max(axis=0).tolist(),
+          "rounds_by_phase_p50": np.median(rbp, axis=0).tolist(),
+          "checked_instances": picks,
+          "checked_nits": [int(sol.nits[i]) for i in picks],
+          "plain_ms_checked": plain_ms, "kernel_ms_checked": picked_ms,
+          "scipy_checked": len(picks), "library_ms": None,
+          "plain_bit_exact": True})
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "launches": launches,
+            "checked_instances": picks, "kernel_ms_checked": picked_ms,
+            "max_abs_err": float((rows[0].prices - want[0].prices)
+                                 .abs().max())}
+
+
+# ----------------------------------------------------------------------
 # the forward and Khosla engines (the fused dense round kernel)
 # ----------------------------------------------------------------------
 ROUND_OUT = ("prices", "p2o", "o2p", "chosen", "maxp")
@@ -3398,6 +3560,10 @@ def main() -> int:
     # Khosla kernel
     arcs = phase_ksp_arcs(port, batch, ka, ksp)
 
+    # 9c. the eps-scaling ladder at the reference crate's config A, on
+    # the arc ladder kernel
+    ladder = phase_ksp_ladder(port, batch, ka)
+
     # 10. the forward and Khosla engines and the plain-rounds FR route
     dr_launches = phase_forward_rect(port, batch, dr, scipy_lsa)
     phase_forward_square(port, batch, dr, scipy_lsa)
@@ -3488,6 +3654,24 @@ def main() -> int:
         "bound_by": arcs["bound_by"],
         "library_ms": None,
         "float32_ms": arcs["float32_ms"],
+    }, {
+        "name": "ksp_arcs_ladder_kernel",
+        "route": "cuda",
+        "source": "sparse_linear_assignment_tpu_torch/csrc/ksp_arcs_kernel.cu",
+        "replaces": None,
+        "launches": ladder["launches"],
+        "max_abs_err": ladder["max_abs_err"],
+        "checked_vs_plain": True,
+        "ms": ladder["ms"],
+        "ms_on": "the config A cell's batch of 128 instances",
+        "plain_ms": ladder["plain_ms"],
+        "plain_ms_on": "3 of its instances alone (quickest, median, "
+                       "slowest): checked_instances",
+        "checked_instances": ladder["checked_instances"],
+        "ms_checked_instances": ladder["kernel_ms_checked"],
+        "bound_ms": ladder["bound_ms"],
+        "bound_by": ladder["bound_by"],
+        "library_ms": None,
     }, {
         "name": "dense_round_kernel",
         "route": "cuda",

@@ -46,7 +46,9 @@ the arc kernel (``ops/ksparse_arcs.py``; its plain version for other
 float types and on the CPU), bit-equal to the plane's rounds in the
 same type.  The same two entry points decide the precision before the
 route: where float32 cannot keep ε in a profit, the batch runs in
-float64 on the arc kernel, whatever its width.  ``SPARSE_ROUTES``
+float64 on the arc kernel, whatever its width.  With ``scale_eps`` a
+square batch runs an ε-scaling ladder on the arcs instead, each
+instance's phases in one launch of the ladder kernel.  ``SPARSE_ROUTES``
 counts the route each staged batch took.
 ``engine="padded"`` keeps each instance in the padded dual layout
 (``ops/padded.py``) and runs the gather rounds of ``ops/auction.py``
@@ -107,9 +109,14 @@ from .ops.fr_big import fr_big_chunk
 from .ops.fr_dense import fr_init, fr_round
 from .ops.fr_kernel import fr_chunk
 from .ops.ksparse_arcs import (
+    Ladder,
     arcs_init,
+    distinct_columns,
     ksp_arcs_chunk,
     ksp_arcs_chunk_reference,
+    ksp_arcs_ladder,
+    ksp_arcs_ladder_reference,
+    ladder_init,
     resolves,
 )
 from .ops.ksparse_kernel import (
@@ -124,9 +131,12 @@ from .ops.stage import stage as _stage  # the FR routes' staging
 from .solution import UNASSIGNED, convert_indices, o2p_from_p2o_device
 from .utils.trace import (
     FINISH_SPAN,
+    LAST_PHASE_ROUNDS,
+    ROUNDS_BY_PHASE,
     SOLVE_BATCH_SPAN,
     STAGE_SPAN,
     WAIT_SPAN,
+    counter,
     span,
     trace_host,
 )
@@ -201,6 +211,9 @@ class BatchSolution:
     objective: np.ndarray         # float64 [B]
     eps: np.ndarray               # float64 [B] achieved eps
     nits: np.ndarray              # int32 [B]
+    #: int32 [B, P]: the rounds of each phase of an eps-scaling ladder
+    #: (the sparse entry points' ``scale_eps``), None without one
+    rounds_by_phase: Optional[np.ndarray] = None
 
     def astype_index(self, index_dtype) -> "BatchSolution":
         """A copy with both assignment arrays in another index width
@@ -477,7 +490,7 @@ def _device_objective(work, p2o, negate: bool) -> torch.Tensor:
 
 
 def _batch_solution(p2o: torch.Tensor, m: int, objective, eps,
-                    nits) -> BatchSolution:
+                    nits, rounds_by_phase=None) -> BatchSolution:
     """The result of a batch solve from its final matching ``p2o [B, N]``
     (int32, on whichever device holds it): object→person and the
     unassigned counts built there (``o2p_from_p2o_device``, which
@@ -493,10 +506,15 @@ def _batch_solution(p2o: torch.Tensor, m: int, objective, eps,
     ``objective``, ``eps`` and ``nits`` (``[B]`` each) come as the route
     has them: tensors, read back here, or host arrays; ``objective`` may
     instead be a function of the host matching, called after the
-    readback, where the route picks it from host costs."""
+    readback, where the route picks it from host costs.
+    ``rounds_by_phase``, an int32 ``[B, P]`` tensor beside the matching,
+    comes back in the same transfer."""
     b, n = p2o.shape
     o2p, num_unassigned = o2p_from_p2o_device(p2o, m)
-    packed = torch.cat([p2o.reshape(-1), o2p.reshape(-1), num_unassigned])
+    parts = [p2o.reshape(-1), o2p.reshape(-1), num_unassigned]
+    if rounds_by_phase is not None:
+        parts.append(rounds_by_phase.reshape(-1).to(torch.int32))
+    packed = torch.cat(parts)
     host = packed
     if packed.is_cuda:
         host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
@@ -508,13 +526,16 @@ def _batch_solution(p2o: torch.Tensor, m: int, objective, eps,
     objective, eps, nits = (
         x.cpu().numpy() if isinstance(x, torch.Tensor) else x
         for x in (objective, eps, nits))
+    end = b * (n + m + 1)
     return BatchSolution(
         person_to_object=p2o,
         object_to_person=flat[b * n:b * (n + m)].reshape(b, m),
-        num_unassigned=flat[b * (n + m):],
+        num_unassigned=flat[b * (n + m):end],
         objective=objective,
         eps=eps.astype(np.float64, copy=False),
         nits=nits,
+        rounds_by_phase=(None if rounds_by_phase is None
+                         else flat[end:].reshape(b, -1)),
     )
 
 
@@ -1134,6 +1155,13 @@ def linear_sum_assignment(cost_matrix, maximize: bool = False,
 #: budget costs nothing
 _SPARSE_KERNEL_BUDGET = 64
 
+#: round budget of one launch of the ladder kernel (``scale_eps``): the
+#: instances of a batch of the reference crate's config A (10,000
+#: persons, about 101 arcs each) run their whole ladders in 14,000 to
+#: 61,000 rounds, so one launch a batch in the common case; an instance
+#: leaves the kernel when it is done, so unused budget costs nothing
+_SPARSE_LADDER_BUDGET = 1 << 18
+
 #: ``engine="auto"`` takes the densified route while the plane is at
 #: most this share of the card's memory (the plane, a transient copy
 #: while it is staged, and the state beside it): 30 GiB of an NVIDIA
@@ -1278,7 +1306,9 @@ class _SparseStaged(NamedTuple):
     is the identity unless the staging compacted).  Two routes: the
     densified plane ``values_nm``, or, where the plane kernel cannot
     take it, no plane (``values_nm`` None) and the sign-adjusted arcs
-    ``work_device`` over ``columns_device`` for the arc kernel."""
+    ``work_device`` over ``columns_device`` for the arc kernel; with
+    ``ladder`` (``scale_eps`` on a square batch) the arcs run an
+    eps-scaling ladder on the ladder kernel."""
 
     values_nm: Optional[torch.Tensor]  # [B, N, M'] person-major plane
     used_cols: Optional[np.ndarray]  # [B, M'] local -> original id
@@ -1292,6 +1322,8 @@ class _SparseStaged(NamedTuple):
     columns_device: Optional[torch.Tensor] = None  # [B, N, K] int32
     values_device: Optional[torch.Tensor] = None  # [B, N, K]
     work_device: Optional[torch.Tensor] = None  # [B, N, K], the arc route
+    scale_eps: bool = False  # the caller asked for an eps-scaling ladder
+    ladder: Optional[Ladder] = None  # its first phase, square batches
 
     @property
     def width(self) -> int:
@@ -1310,6 +1342,7 @@ def stage_batch_sparse_device(
     eps: Optional[float] = None,
     compact: Optional[bool] = None,
     device=None,
+    scale_eps: bool = False,
 ) -> _SparseStaged:
     """Device-resident staging for :func:`solve_batch_sparse_stream` and
     staged solves: ``columns_device [B, N, K]`` int32 (``-1`` pads) and
@@ -1334,12 +1367,18 @@ def stage_batch_sparse_device(
     ``compact``: per-instance column compaction before the device
     scatter (a host-side remap; needs host column arrays).  It narrows
     the plane to the columns the batch really uses.  The drop
-    thresholds always use the original ``num_cols``."""
+    thresholds always use the original ``num_cols``.
+
+    ``scale_eps``: on a square batch, an eps-scaling ladder down to
+    ``eps`` on the arcs (:func:`solve_batch_sparse` says more); on any
+    other batch one phase at ``eps``, the route and the result as
+    without it."""
     with span(STAGE_SPAN):
         b, n, k = columns_device.shape
         m = int(num_cols)
         if n > m:
             raise ValueError("num_rows must be <= num_cols")
+        scaled = scale_eps and n == m
         eps_val = float(eps) if eps is not None else 1.0 / m
         used_cols = None
         mp = m
@@ -1360,34 +1399,49 @@ def stage_batch_sparse_device(
             dev = resolve_device(device)
         cols = torch.as_tensor(columns_device).to(dev, torch.int32)
         vals = torch.as_tensor(values_device).to(dev, torch.float32)
+        if scaled:
+            # the ladder runs on the arcs, each column once a row
+            cols = distinct_columns(cols)
         mask = cols >= 0
-        # the checks and the largest |value|, in one readback
-        arcless, out_of_range, absmax = torch.stack([
+        # the checks and the largest |value| (and a ladder's value
+        # ranges), in one readback
+        checks = torch.stack([
             ~mask.any(dim=2).all(), cols.max() >= mp,
             torch.where(mask, vals.abs(), 0.0).amax(),
-        ]).tolist()
+        ])
+        if scaled:
+            checks = torch.cat([checks, *_sparse_value_range(mask, vals)])
+        checks = checks.tolist()
+        arcless, out_of_range, absmax = checks[:3]
         if arcless:
             raise ValueError("every person needs at least one arc")
         if out_of_range:
             raise ValueError(f"column ids must be below num_cols ({m})")
-        plane = work = None
+        plane = work = ladder = None
         # the precision first: float32 that cannot keep eps in a profit
         # runs in float64 on the arcs, whatever the plane's width
         dtype = torch.float32 if resolves(eps_val, absmax) else torch.float64
-        if dtype == torch.float32 and _plane_fits(n, mp):
-            SPARSE_ROUTES["plane"] += 1
-            plane, w_lo, w_hi = _sparse_stage_scatter(cols, vals, mp,
-                                                      not maximize)
-        else:
+        if scaled:
             SPARSE_ROUTES["arcs"] += 1
             work = vals.to(dtype) if maximize else -vals.to(dtype)
-            w_lo, w_hi = _sparse_value_range(mask, work)
-        # drop-rule factor from the original object count, in float32 on
-        # the device as the JAX package computes it (float64 where the
-        # arcs run in float64)
-        thresholds = (m / 2.0) * (
-            w_hi - w_lo + torch.tensor(eps_val, dtype=dtype, device=dev)
-        )
+            lo, hi = np.asarray(checks[3:3 + b]), np.asarray(checks[3 + b:])
+            ladder = ladder_init(hi - lo, eps_val, m, dtype, dev)
+            thresholds = ladder.thresholds
+        else:
+            if dtype == torch.float32 and _plane_fits(n, mp):
+                SPARSE_ROUTES["plane"] += 1
+                plane, w_lo, w_hi = _sparse_stage_scatter(cols, vals, mp,
+                                                          not maximize)
+            else:
+                SPARSE_ROUTES["arcs"] += 1
+                work = vals.to(dtype) if maximize else -vals.to(dtype)
+                w_lo, w_hi = _sparse_value_range(mask, work)
+            # drop-rule factor from the original object count, in float32
+            # on the device as the JAX package computes it (float64 where
+            # the arcs run in float64)
+            thresholds = (m / 2.0) * (
+                w_hi - w_lo + torch.tensor(eps_val, dtype=dtype, device=dev)
+            )
         return _SparseStaged(
             values_nm=plane,
             used_cols=used_cols,
@@ -1401,6 +1455,8 @@ def stage_batch_sparse_device(
             columns_device=cols,
             values_device=vals,
             work_device=work,
+            scale_eps=scale_eps,
+            ladder=ladder,
         )
 
 
@@ -1427,17 +1483,27 @@ def _sparse_stage_dense(
 
 def _sparse_stage_arcs(
     columns, values64, arc_mask, work, m, eps_val, thresholds, dtype, dev,
+    scale_eps: bool = False,
 ) -> _SparseStaged:
     """The host arrays' arc route: the arcs copied to ``dev`` as they
     are (original column ids, ``work`` in ``dtype``), no plane; the
-    objective stays the host's, from ``values64``."""
+    objective stays the host's, from ``values64``.  ``scale_eps`` on a
+    square batch: its ladder, from the span of ``work`` in ``dtype``
+    (the problem's repeated columns already cleared)."""
     SPARSE_ROUTES["arcs"] += 1
+    work = work.astype(np.dtype(dtype))
+    ladder = None
+    if scale_eps and columns.shape[1] == m:
+        wide = work.astype(np.float64)
+        spans = (np.where(arc_mask, wide, -np.inf).max(axis=(1, 2))
+                 - np.where(arc_mask, wide, np.inf).min(axis=(1, 2)))
+        ladder = ladder_init(spans, eps_val, m, _torch_dtype(dtype), dev)
     return _SparseStaged(
         values_nm=None,
         used_cols=None,
-        thresholds=torch.from_numpy(
-            thresholds.astype(np.dtype(dtype))
-        ).to(dev),
+        thresholds=(ladder.thresholds if ladder is not None
+                    else torch.from_numpy(
+                        thresholds.astype(np.dtype(dtype))).to(dev)),
         columns=columns,
         arc_mask=arc_mask,
         values64=values64,
@@ -1445,18 +1511,25 @@ def _sparse_stage_arcs(
         eps_val=eps_val,
         columns_device=torch.from_numpy(
             columns.astype(np.int32, copy=False)).to(dev),
-        work_device=torch.from_numpy(work.astype(np.dtype(dtype))).to(dev),
+        work_device=torch.from_numpy(work).to(dev),
+        scale_eps=scale_eps,
+        ladder=ladder,
     )
 
 
-def _sparse_dispatch(st: _SparseStaged, chunk: int, stream=None) -> dict:
+def _sparse_dispatch(st: _SparseStaged, chunk: int, max_rounds: int,
+                     stream=None) -> dict:
     """Launch the first (usually only) chunk of a staged solve without
     blocking; returns the context for :func:`_sparse_finish`.  Split so
     that the stream mode can overlap one batch's readback with the next
     batch's rounds.  float32 runs on the Khosla kernel of its route (the
     plane's or the arcs', which also takes float64; their plain versions
     on CPU tensors), ``_SPARSE_KERNEL_BUDGET`` rounds per launch; any
-    other float type on the plain rounds, ``chunk`` rounds first.
+    other float type on the plain rounds, ``chunk`` rounds first.  A
+    ladder (``st.ladder``) runs on the ladder kernel (its plain version
+    for other float types and on the CPU), ``_SPARSE_LADDER_BUDGET``
+    rounds a launch and never past ``max_rounds``, and its state rides
+    in the context.
     ``stream``: the CUDA stream this batch runs on (``None``: the
     current one)."""
     arcs = st.values_nm is None
@@ -1464,7 +1537,17 @@ def _sparse_dispatch(st: _SparseStaged, chunk: int, stream=None) -> dict:
     eps_s = _numpy_dtype(values.dtype).type(st.eps_val)
     kernel = values.dtype == torch.float32 or (
         arcs and values.dtype == torch.float64)
-    if arcs:
+    ladder = {"at": st.ladder}
+    if st.ladder is not None:
+        ladder_fn = ksp_arcs_ladder if kernel else ksp_arcs_ladder_reference
+        kernel = True  # one budget a launch, either way
+
+        def run(states, rounds):
+            states, ladder["at"] = ladder_fn(
+                st.columns_device, values, states, ladder["at"], st.eps_val,
+                st.m, rounds)
+            return states
+    elif arcs:
         chunk_fn = ksp_arcs_chunk if kernel else ksp_arcs_chunk_reference
 
         def run(states, rounds):
@@ -1475,7 +1558,8 @@ def _sparse_dispatch(st: _SparseStaged, chunk: int, stream=None) -> dict:
 
         def run(states, rounds):
             return chunk_fn(values, states, eps_s, st.thresholds, rounds)
-    cur = _SPARSE_KERNEL_BUDGET if kernel else chunk
+    cur = (min(_SPARSE_LADDER_BUDGET, max_rounds) if st.ladder is not None
+           else _SPARSE_KERNEL_BUDGET if kernel else chunk)
     if stream is not None:
         stream.wait_stream(torch.cuda.current_stream(values.device))
     with _on_stream(stream):
@@ -1483,7 +1567,7 @@ def _sparse_dispatch(st: _SparseStaged, chunk: int, stream=None) -> dict:
                 else khosla_init(values))
         states = run(init, cur)
     return dict(states=states, rounds=cur, chunk=cur, kernel=kernel,
-                run=run, stream=stream)
+                run=run, stream=stream, ladder=ladder)
 
 
 def _sparse_device_objective(st: _SparseStaged, p2o) -> torch.Tensor:
@@ -1523,8 +1607,9 @@ def _sparse_finish(st: _SparseStaged, ctx: dict,
             trace_host("sparse: rounds={} undone={}", rounds, undone)
             if not undone or rounds >= max_rounds:
                 break
-            cur = (_SPARSE_KERNEL_BUDGET if ctx["kernel"]
-                   else min(1024, cur * 2))
+            cur = ctx["chunk"] if ctx["kernel"] else min(1024, cur * 2)
+            if st.ladder is not None:  # a ladder stops at max_rounds
+                cur = min(cur, max_rounds - rounds)
             states = ctx["run"](states, cur)
             rounds += cur
         with span(FINISH_SPAN):
@@ -1540,16 +1625,38 @@ def _sparse_finish(st: _SparseStaged, ctx: dict,
                     used.gather(1, torch.where(assigned, p2o, 0).long()),
                     UNASSIGNED,
                 ).to(torch.int32)
-            return _batch_solution(p2o, st.m, objective,
-                                   np.full(p2o.shape[0], st.eps_val),
-                                   states.nits)
+            ladder = ctx["ladder"]["at"]
+            sol = _batch_solution(
+                p2o, st.m, objective, np.full(p2o.shape[0], st.eps_val),
+                states.nits, None if ladder is None else ladder.rounds)
+            if st.scale_eps:
+                _phase_counters(sol)
+            return sol
+
+
+def _phase_counters(sol: BatchSolution) -> None:
+    """A scaled solve's rounds by phase: one phase where no ladder ran
+    (a rectangular batch); the program's counters of them."""
+    if sol.rounds_by_phase is None:
+        sol.rounds_by_phase = sol.nits.reshape(-1, 1)
+    rbp = sol.rounds_by_phase
+
+    def last():
+        # every phase runs a round at least, so an instance's last phase
+        # is its last nonzero entry
+        at = rbp.shape[1] - 1 - np.argmax(rbp[:, ::-1] != 0, axis=1)
+        return [rbp[np.arange(rbp.shape[0]), at].max()]
+
+    counter(LAST_PHASE_ROUNDS, last)
+    counter(ROUNDS_BY_PHASE, lambda: rbp.max(axis=0))
 
 
 def _sparse_solve_staged(st: _SparseStaged, max_rounds: int,
                          chunk: int) -> BatchSolution:
     """Solve a staged problem: one launch and one readback in the common
     case (m >> n instances are done well inside the first chunk)."""
-    return _sparse_finish(st, _sparse_dispatch(st, chunk), max_rounds)
+    return _sparse_finish(st, _sparse_dispatch(st, chunk, max_rounds),
+                          max_rounds)
 
 
 def _sparse_host_problem(columns, values, num_cols, maximize, eps):
@@ -1614,24 +1721,27 @@ def solve_batch_sparse_stream(
 
     def dispatch(st, slot):
         stream = _window_streams(st.thresholds.device, window)[slot]
-        return st, _sparse_dispatch(st, chunk, stream)
+        return st, _sparse_dispatch(st, chunk, max_rounds, stream)
 
     return _pipeline(staged, window, dispatch,
                      lambda st, ctx: _sparse_finish(st, ctx, max_rounds))
 
 
-def _sparse_auto_route(problem, dtype, dev):
+def _sparse_auto_route(problem, dtype, dev, scaled: bool = False):
     """``engine="auto"``'s choice for a host problem: ``(engine, dtype,
     col_map)``.  The precision first: float32 that cannot keep ``eps``
-    in a profit runs in float64 on the arcs.  Then the arcs where the
-    plane kernel's shared memory cannot hold the compacted plane, else
-    dense when the densified plane fits, padded otherwise.  ``col_map``
-    is the column map if it was built to measure the width."""
+    in a profit runs in float64 on the arcs.  Then the arcs for a
+    ladder (``scaled``) and where the plane kernel's shared memory
+    cannot hold the compacted plane, else dense when the densified
+    plane fits, padded otherwise.  ``col_map`` is the column map if it
+    was built to measure the width."""
     columns, _, arc_mask, work, m, eps_val, _ = problem
     b, n, k = columns.shape
     if (np.dtype(dtype) == np.float32
             and not resolves(eps_val, np.abs(work[arc_mask]).max())):
         return "arcs", np.float64, None
+    if scaled:
+        return "arcs", dtype, None
     # the compacted width at most, min(m, n*k) columns padded as staged;
     # only past the plane kernel's limit is it counted
     width = _plane_width(min(m, n * k))
@@ -1657,6 +1767,7 @@ def solve_batch_sparse(
     chunk: int = 64,
     engine: str = "auto",
     device=None,
+    scale_eps: bool = False,
 ) -> BatchSolution:
     """Solve a batch of k-sparse LAP instances with the Khosla auction
     (finite termination on infeasible instances through the drop rule).
@@ -1682,25 +1793,58 @@ def solve_batch_sparse(
     (:func:`_sparse_dense_max_bytes`), padded otherwise; unlike the JAX
     package it does so on ``device="cpu"`` too.  ``"dense"``,
     ``"padded"`` and :func:`stage_batch_sparse` keep ``dtype`` as
-    given."""
+    given.
+
+    ``scale_eps``: an eps-scaling ladder down to ``eps``, the rules of
+    ``ops/compact.py:khosla_solve_scaled`` over the whole batch at once:
+    each instance starts at a quarter of its values' span, shrinks ε
+    eightfold a phase with its prices kept and its matching reset, and
+    runs its last phase at ``eps`` with the drop threshold of that ε
+    shifted by its largest carried price, so the result carries the
+    fixed-ε certificate (within ``N·eps`` of the optimum when every
+    person is assigned).  At a fixed small ε a square instance is a
+    price war: its objects change hands about (value span)/ε times
+    before it ends (at 10,000², values in [500, 1000) and ε = 2⁻¹⁵/10,001,
+    far beyond any round budget), where the ladder ends in tens of
+    thousands of rounds.  Square batches take the arc route
+    (``engine="auto"`` only) with each column once a row (a column a
+    person lists twice counts at its later slot, the objective
+    included) and return ``rounds_by_phase``; ``nits`` is the sum over
+    the phases, and ``max_rounds`` caps it.  The ladder needs every object matched, so any other
+    batch runs one phase at ``eps``, as without ``scale_eps``, and
+    reports it as its one phase."""
     if engine not in ("auto", "dense", "padded"):
         raise ValueError(f"unknown engine {engine!r}")
     with span(STAGE_SPAN):
         problem = _sparse_host_problem(columns, values, num_cols, maximize,
                                        eps)
+        scaled = scale_eps and problem[0].shape[1] == problem[4]
+        if scaled and engine != "auto":
+            raise ValueError("scale_eps on a square batch runs on the arc "
+                             "route: engine must be 'auto'")
+        if scaled:
+            # each column once a row, as the plane keeps the arcs
+            columns = distinct_columns(torch.from_numpy(
+                np.ascontiguousarray(problem[0], dtype=np.int32))).numpy()
+            problem = (columns, problem[1], columns >= 0, *problem[3:])
         dev = resolve_device(device)
         col_map = None
         if engine == "auto":
-            engine, dtype, col_map = _sparse_auto_route(problem, dtype, dev)
+            engine, dtype, col_map = _sparse_auto_route(problem, dtype, dev,
+                                                        scaled)
         if engine == "arcs":
-            st = _sparse_stage_arcs(*problem, dtype, dev)
+            st = _sparse_stage_arcs(*problem, dtype, dev, scale_eps)
         elif engine == "dense":
             st = _sparse_stage_dense(*problem, dtype, dev, col_map)
     if engine == "padded":
         SPARSE_ROUTES["padded"] += 1
-        return _solve_batch_sparse_padded(*problem, dtype, max_rounds,
-                                          chunk, dev)
-    return _sparse_solve_staged(st, max_rounds, chunk)
+        sol = _solve_batch_sparse_padded(*problem, dtype, max_rounds,
+                                         chunk, dev)
+        if scale_eps:
+            _phase_counters(sol)
+        return sol
+    return _sparse_solve_staged(st._replace(scale_eps=scale_eps), max_rounds,
+                                chunk)
 
 
 def _batch_chunk_sparse(problem: PaddedProblem, states: KhoslaState, eps,

@@ -57,11 +57,22 @@ matching.
 On CPU tensors :func:`ksp_arcs_chunk` runs the plain PyTorch version
 :func:`ksp_arcs_chunk_reference`; on CUDA tensors it launches the kernel
 or raises.  ``LAUNCHES`` counts the launches.
+
+The ε-scaling ladder (:func:`ksp_arcs_ladder`, plain version
+:func:`ksp_arcs_ladder_reference`; ``LADDER_LAUNCHES``): the same rounds
+in phases of shrinking ε, each instance's phases back to back in its CTA
+(``ksp_arcs_ladder_kernel``), with its state between launches in a
+:class:`Ladder`.  A square batch at a small ε is a price war that a
+single ε ends only after about (value span)/ε exchanges; the ladder ends
+the reference crate's config A (10,000², ε = 2^-15/10,001) in 14,000 to
+61,000 rounds an instance.  Its rows hold each column once
+(:func:`distinct_columns`).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -75,6 +86,13 @@ from .ksparse_kernel import PHASES
 
 #: kernel launches made by :func:`ksp_arcs_chunk` in this process
 LAUNCHES = 0
+
+#: kernel launches made by :func:`ksp_arcs_ladder` in this process
+LADDER_LAUNCHES = 0
+
+#: the ladder's step shrinks by this factor from phase to phase
+#: (``ops/compact.py:khosla_solve_scaled``'s ``reduction_factor``)
+LADDER_FACTOR = 0.125
 
 _lib = None
 
@@ -90,6 +108,12 @@ def _kernel_lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, p,
         ]
         lib.slap_ksp_arcs_rounds.restype = ctypes.c_int
+        lib.slap_ksp_arcs_ladder.argtypes = [
+            p, p, p, p, p, p, p, p, p, p, p, p, p, p, ctypes.c_int,
+            ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
+        ]
+        lib.slap_ksp_arcs_ladder.restype = ctypes.c_int
         lib.slap_ksp_arcs_error_string.argtypes = [ctypes.c_int]
         lib.slap_ksp_arcs_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -182,8 +206,10 @@ def _arcs_round(columns, values, valid, s: KhoslaState, eps,
                 thresholds) -> KhoslaState:
     """One synchronous Khosla round of every instance from its arcs,
     with the densified plane's arithmetic (``ops/auction.py``'s
-    ``_top2_profits_dense`` and ``_resolve_and_assign_dense``): an
-    instance with no active person comes out unchanged."""
+    ``_top2_profits_dense`` and ``_resolve_and_assign_dense``) over the
+    rows of the active persons alone: an instance with no active person
+    comes out unchanged.  ``eps`` is a scalar or one a instance
+    (``[B]``)."""
     b, n, _ = values.shape
     m = s.prices.shape[1]
     dtype, dev = values.dtype, values.device
@@ -191,44 +217,50 @@ def _arcs_round(columns, values, valid, s: KhoslaState, eps,
     big = torch.iinfo(torch.int32).max
 
     active = (s.p2o == UNASSIGNED) & ~s.dropped
-    safe = torch.where(valid, columns, 0).long()
-    profit = torch.where(
-        valid, values - s.prices.gather(1, safe.reshape(b, -1)).reshape(
-            safe.shape), neg_inf)
-    best = profit.amax(dim=2)
-    best_col = torch.where(valid & (profit == best[:, :, None]), columns,
-                           big).amin(dim=2)
-    sel = valid & (columns == best_col[:, :, None])
-    second = torch.where(sel, neg_inf, profit).amax(dim=2)
-    best_val = torch.where(sel, values, neg_inf).amax(dim=2)
+    inst, person = active.nonzero(as_tuple=True)
+    cols, vals, ok = columns[inst, person], values[inst, person], \
+        valid[inst, person]
+    safe = torch.where(ok, cols, 0).long()
+    profit = torch.where(ok, vals - s.prices[inst[:, None], safe], neg_inf)
+    best = profit.amax(dim=1)
+    best_col = torch.where(ok & (profit == best[:, None]), cols,
+                           big).amin(dim=1)
+    sel = ok & (cols == best_col[:, None])
+    second = torch.where(sel, neg_inf, profit).amax(dim=1)
+    best_val = torch.where(sel, vals, neg_inf).amax(dim=1)
     price_at_best = best_val - best
-    drop_now = active & (price_at_best > thresholds[:, None])
-    bidder = active & ~drop_now
+    drop_now = price_at_best > thresholds[inst]
+    if eps.dim() > 0:
+        eps = eps[inst]
     raw_bid = torch.where(second != neg_inf, best_val - second + eps,
                           price_at_best + eps)
-    bid = torch.where(bidder, raw_bid, neg_inf)
+    bid = torch.where(drop_now, neg_inf, raw_bid)
 
     # each object takes the largest bid, the smallest person on ties; a
-    # person that bids nothing aims at the dummy column m
-    target = torch.where(bidder, best_col, m).long()
-    max_bid = torch.full((b, m + 1), -float("inf"), dtype=dtype, device=dev)
-    max_bid.scatter_reduce_(1, target, bid, "amax")
-    top = bidder & (bid == max_bid.gather(1, target))
-    persons = torch.arange(n, dtype=torch.int32, device=dev).expand(b, n)
-    winner = torch.full((b, m + 1), big, dtype=torch.int32, device=dev)
-    winner.scatter_reduce_(1, target, torch.where(top, persons, big), "amin")
-    has_winner = max_bid[:, :m] != neg_inf
-    won = bidder & (winner.gather(1, target) == persons)
+    # person that drops aims at its instance's dummy column m
+    target = inst * (m + 1) + torch.where(drop_now, m, best_col).long()
+    max_bid = torch.full((b * (m + 1),), -float("inf"), dtype=dtype,
+                         device=dev)
+    max_bid.scatter_reduce_(0, target, bid, "amax")
+    top = ~drop_now & (bid == max_bid[target])
+    person = person.to(torch.int32)
+    winner = torch.full((b * (m + 1),), big, dtype=torch.int32, device=dev)
+    winner.scatter_reduce_(0, target, torch.where(top, person, big), "amin")
+    won = ~drop_now & (winner[target] == person)
+    max_bid = max_bid.view(b, m + 1)[:, :m]
+    has_winner = max_bid != neg_inf
     assigned = s.p2o != UNASSIGNED
     displaced = assigned & has_winner.gather(
         1, torch.where(assigned, s.p2o, 0).long())
-    p2o = torch.where(won, best_col,
-                      torch.where(displaced, UNASSIGNED, s.p2o))
+    p2o = torch.where(displaced, UNASSIGNED, s.p2o).to(torch.int32)
+    p2o[inst[won], person[won].long()] = best_col[won].to(torch.int32)
+    dropped = s.dropped.clone()
+    dropped[inst, person.long()] = drop_now
     return KhoslaState(
-        prices=torch.where(has_winner, max_bid[:, :m], s.prices),
-        p2o=p2o.to(torch.int32),
+        prices=torch.where(has_winner, max_bid, s.prices),
+        p2o=p2o,
         o2p=s.o2p,
-        dropped=s.dropped | drop_now,
+        dropped=dropped,
         nits=s.nits + active.any(dim=1).to(torch.int32),
     )
 
@@ -347,3 +379,182 @@ def _ksp_arcs_chunk_cuda(columns, values, states, eps, thresholds, rounds,
     LAUNCHES += 1
     return KhoslaState(prices=prices, p2o=p2o, o2p=states.o2p,
                        dropped=dropped, nits=nits)
+
+
+class Ladder(NamedTuple):
+    """An ε-scaling ladder's state beside the batch's
+    :class:`KhoslaState` (:func:`ksp_arcs_ladder`), one entry an
+    instance."""
+
+    spans: torch.Tensor       # [B] float64: the staged values' span
+    steps: torch.Tensor       # [B] float64: the current phase's step
+    thresholds: torch.Tensor  # [B], the values' dtype: its drop threshold
+    phase: torch.Tensor       # [B] int32: the current phase
+    rounds: torch.Tensor      # [B, P] int32: the rounds run in each phase
+
+
+def ladder_steps(span: float, eps_target: float) -> list:
+    """The ε of each phase of a square instance whose values span
+    ``span``: from ``max(span / 4, eps_target)`` down by
+    :data:`LADDER_FACTOR` while above ``eps_target``, then
+    ``eps_target`` (``ops/compact.py:khosla_solve_scaled``)."""
+    eps = max(span / 4.0, eps_target)
+    steps = []
+    while eps > eps_target:
+        steps.append(eps)
+        eps *= LADDER_FACTOR
+    return steps + [eps_target]
+
+
+def ladder_init(spans, eps_target: float, m: int, dtype,
+                device) -> Ladder:
+    """The ladder of a batch from the initial state: each instance at
+    its first phase, whose drop threshold is ``(m / 2)(span + ε)`` in
+    float64 rounded once to ``dtype``, and room for the longest
+    instance's phases.  ``spans`` is a host float64 array."""
+    spans = np.asarray(spans, dtype=np.float64)
+    steps = np.maximum(spans / 4.0, eps_target)
+    phases = max(len(ladder_steps(float(x), eps_target)) for x in spans)
+    thresholds = (m / 2.0) * (spans + steps) + 0.0
+    return Ladder(
+        spans=torch.from_numpy(spans).to(device),
+        steps=torch.from_numpy(steps).to(device),
+        thresholds=torch.from_numpy(thresholds).to(device, dtype),
+        phase=torch.zeros(len(spans), dtype=torch.int32, device=device),
+        rounds=torch.zeros((len(spans), phases), dtype=torch.int32,
+                           device=device),
+    )
+
+
+def distinct_columns(columns: torch.Tensor) -> torch.Tensor:
+    """``columns`` with every slot whose column a later slot of its row
+    repeats set to ``-1``: the same arcs as the plane keeps them (a
+    repeated column's later slot), each column once a row, as
+    :func:`ksp_arcs_ladder` takes them."""
+    return torch.where(later_repeat(columns), -1, columns)
+
+
+def _check_ladder(values, ladder: Ladder) -> None:
+    b = values.shape[0]
+    for name, t, dtype in (("spans", ladder.spans, torch.float64),
+                           ("steps", ladder.steps, torch.float64),
+                           ("thresholds", ladder.thresholds, values.dtype),
+                           ("phase", ladder.phase, torch.int32)):
+        if tuple(t.shape) != (b,) or t.dtype != dtype:
+            raise ValueError(f"ladder.{name} must be a {dtype} [{b}] tensor")
+    r = ladder.rounds
+    if r.dim() != 2 or r.shape[0] != b or r.shape[1] < 1 or (
+            r.dtype != torch.int32):
+        raise ValueError(f"ladder.rounds must be an int32 [{b}, P] tensor")
+    for t in ladder:
+        if t.device != values.device:
+            raise ValueError(f"the ladder is on {t.device}, the values on "
+                             f"{values.device}")
+
+
+def ksp_arcs_ladder_reference(columns, values, states: KhoslaState,
+                              ladder: Ladder, eps_target: float, m: int,
+                              rounds: int):
+    """Plain PyTorch version of the ladder kernel: synchronous rounds
+    over the batch, each instance at its own phase's ε and threshold;
+    right after the round that leaves an instance with no active person,
+    unless that phase ran at ``eps_target``, the step shrinks by
+    :data:`LADDER_FACTOR`, the threshold becomes ``(m / 2)(span + ε) +
+    max(0, the largest price)`` in float64 rounded once, and the
+    matching and the drops are reset, prices kept.  At most ``rounds``
+    rounds; any float dtype; repeated columns as the plane keeps them.
+    Returns ``(states, ladder)``."""
+    check_arcs(columns, values, states, ladder.thresholds)
+    _check_ladder(values, ladder)
+    b = values.shape[0]
+    dtype, dev = values.dtype, values.device
+    valid = (columns >= 0) & ~later_repeat(columns)
+    rows = torch.arange(b, device=dev)
+    target = torch.full((b,), eps_target, dtype=torch.float64, device=dev)
+    s, lad = states, ladder._replace(rounds=ladder.rounds.clone())
+    for _ in range(rounds):
+        busy = ((s.p2o == UNASSIGNED) & ~s.dropped).any(dim=1)
+        if not bool(busy.any()):
+            break
+        eps = torch.where(lad.steps > target, lad.steps, target).to(dtype)
+        s = _arcs_round(columns, values, valid, s, eps, lad.thresholds)
+        at = lad.phase.long().clamp(max=lad.rounds.shape[1] - 1)
+        lad.rounds[rows, at] += (busy & (lad.phase < lad.rounds.shape[1])
+                                 ).to(torch.int32)
+        left = ((s.p2o == UNASSIGNED) & ~s.dropped).any(dim=1)
+        nxt = busy & ~left & (lad.steps > target)
+        if not bool(nxt.any()):
+            continue
+        steps = torch.where(nxt, lad.steps * LADDER_FACTOR, lad.steps)
+        pad = s.prices.amax(dim=1).to(torch.float64).clamp(min=0.0)
+        eps_next = torch.where(steps > target, steps, target)
+        thr = ((m / 2.0) * (lad.spans + eps_next) + pad).to(dtype)
+        lad = lad._replace(
+            steps=steps, thresholds=torch.where(nxt, thr, lad.thresholds),
+            phase=lad.phase + nxt.to(torch.int32))
+        s = s._replace(
+            p2o=torch.where(nxt[:, None], UNASSIGNED, s.p2o).to(torch.int32),
+            dropped=s.dropped & ~nxt[:, None])
+    return s, lad
+
+
+def ksp_arcs_ladder(columns, values, states: KhoslaState, ladder: Ladder,
+                    eps_target: float, m: int, rounds: int):
+    """Up to ``rounds`` rounds of each instance's ε-scaling ladder, its
+    phases back to back (:func:`ksp_arcs_ladder_reference` gives the
+    rules), from the arcs ``columns [B, N, K]`` (int32, ``-1`` pads,
+    each column at most once a row: :func:`distinct_columns`) and
+    ``values [B, N, K]`` (float32 or float64, sign-adjusted) over the
+    objects of ``states.prices``; ``m`` is the object count of the drop
+    thresholds.  Returns ``(states, ladder)``: an instance with an
+    active person after it is mid-phase, and a later call continues it.
+    CPU tensors run the plain version; CUDA tensors launch
+    ``ksp_arcs_ladder_kernel``, one CTA an instance."""
+    check_arcs(columns, values, states, ladder.thresholds)
+    _check_ladder(values, ladder)
+    if values.device.type == "cpu":
+        return ksp_arcs_ladder_reference(columns, values, states, ladder,
+                                         eps_target, m, rounds)
+    if values.device.type != "cuda":
+        raise ValueError(f"ksp_arcs_ladder runs on cpu or cuda, not "
+                         f"{values.device}")
+    global LADDER_LAUNCHES
+    b, n, k = values.shape
+    width = states.prices.shape[1]
+    dtype, dev = values.dtype, values.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the ladder kernel takes float32 or float64 "
+                         f"values, got {dtype}; other types run "
+                         f"ksp_arcs_ladder_reference")
+    cols = columns.contiguous()
+    vals = values.contiguous()
+    prices = states.prices.to(dtype).contiguous().clone()
+    p2o = states.p2o.to(torch.int32).contiguous().clone()
+    dropped = states.dropped.to(torch.bool).contiguous().clone()
+    nits = states.nits.to(torch.int32).contiguous().clone()
+    lad = Ladder(*(t.contiguous().clone() for t in ladder))
+    keys = torch.zeros((b, width), dtype=torch.int64, device=dev)
+    double = dtype == torch.float64
+    winner = (torch.empty((b, width), dtype=torch.int32, device=dev)
+              if double else None)
+    scratch = torch.empty((b, (6 if double else 3) * n), dtype=torch.int32,
+                          device=dev)
+    ptr = (lambda t: t.data_ptr() if t is not None else None)
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.slap_ksp_arcs_ladder(
+            cols.data_ptr(), vals.data_ptr(),
+            prices.data_ptr(), keys.data_ptr(), ptr(winner),
+            p2o.data_ptr(), dropped.data_ptr(), nits.data_ptr(),
+            lad.thresholds.data_ptr(), scratch.data_ptr(),
+            lad.spans.data_ptr(), lad.steps.data_ptr(), lad.phase.data_ptr(),
+            lad.rounds.data_ptr(), lad.rounds.shape[1], float(eps_target),
+            m / 2.0, 8 if double else 4, b, n, width, k, int(rounds), stream,
+        )
+    if rc != 0:
+        msg = lib.slap_ksp_arcs_error_string(rc).decode()
+        raise RuntimeError(f"arc ladder kernel launch failed: {msg} ({rc})")
+    LADDER_LAUNCHES += 1
+    return KhoslaState(prices=prices, p2o=p2o, o2p=states.o2p,
+                       dropped=dropped, nits=nits), lad

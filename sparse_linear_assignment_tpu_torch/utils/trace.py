@@ -1,5 +1,5 @@
 """Tracing: gated host, round and in-kernel round prints, a profiler
-context, and named spans in the profiler's timeline.
+context, and named spans and counters in the profiler's timeline.
 
 The prints are gated on the same ``SLAP_TPU_DEBUG`` environment variable
 as the JAX package.  PyTorch runs eagerly, so a round trace formats its
@@ -25,6 +25,12 @@ FINISH_SPAN = "slap.finish"  # a batch solve after its driver
 INVERT_SPAN = "slap.invert"  # ``solution``'s two inversions
 STAGE_SPAN = "slap.stage"  # the sparse entry points' staging
 SPANS = (SOLVE_BATCH_SPAN, WAIT_SPAN, FINISH_SPAN, INVERT_SPAN, STAGE_SPAN)
+
+#: the program's counters (:func:`counter`), each marked once a batch
+#: that runs an eps-scaling ladder: the largest number of rounds of an
+#: instance's last phase, and the largest of each phase's, in order
+LAST_PHASE_ROUNDS = "slap.last_phase_rounds"
+ROUNDS_BY_PHASE = "slap.rounds_by_phase"
 
 _NO_SPAN = contextlib.nullcontext()
 
@@ -76,6 +82,18 @@ def span(name: str):
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return _NO_SPAN
+
+
+def counter(name: str, values) -> None:
+    """Mark the counter ``name`` in the timeline of a ``torch.profiler``
+    recording in this thread: a span of no length named
+    ``<name>=<values>`` (whole numbers, comma-separated), which a metric
+    of the benchmark parses.  ``values`` is a callable, called only
+    while a recording runs; with none this costs one flag test."""
+    if torch.autograd._profiler_enabled():
+        text = ",".join(str(int(v)) for v in values())
+        with torch.profiler.record_function(f"{name}={text}"):
+            pass
 
 
 #: the Chrome trace's file name inside ``profile_solve``'s ``log_dir``
