@@ -1394,6 +1394,9 @@ def phase_ksp_arcs(port, batch, ka, ksp):
 #: the benchmark cell whose batch the ladder phase runs, and its eps
 CONFIG_A_CELL = "ksparse-crate-a.b128x2-n10000"
 CONFIG_A_EPS = 2.0 ** -15 / (10_000 + 1)
+#: the ladder kernel's ms on that batch before its few-bidder rounds bid
+#: in one burst (two calls, NVIDIA H100 80GB HBM3, 700 W)
+LADDER_MS_BEFORE_BURST = (481.6, 478.4)
 
 
 def config_a_arcs(gen, b, n, k, config):
@@ -1430,16 +1433,21 @@ def ladders_differ(a, b):
 
 def phase_ksp_ladder(port, batch, ka):
     """The ladder kernel bit-equal to its plain version on small square
-    batches in both value types (rows of 8 to 176 slots), whole, stopped
-    and continued; one batch of the config A cell (128 instances of
-    10,000², about 101 arcs a person in 176 slots, eps = 2^-15 / 10,001)
-    staged with ``scale_eps`` and solved through the stream: its
-    launches, the kernel's time on the batch beside its bound, rounds by
-    phase; the batch's quickest, median and slowest instances, as the
-    kernel's one launch over the whole batch left them, bit-equal to the
-    plain version run on those three alone (both timed on those three),
-    and scipy's optimum on each of them."""
+    batches in both value types (rows of 8 to 176 slots, and rows one
+    slot wider than the burst, whose rounds never bid in one), whole,
+    stopped and continued, burst rounds included; one batch of the
+    config A cell (128 instances of 10,000², about 101 arcs a person in
+    176 slots, eps = 2^-15 / 10,001) staged with ``scale_eps`` and solved
+    through the stream: its launches, the share of its rounds that bid
+    in one burst, the kernel's time on the batch beside its bound and
+    its time before the burst, rounds by phase; the batch's quickest,
+    median and slowest instances, as the kernel's one launch over the
+    whole batch left them, bit-equal to the plain version run on those
+    three alone (both timed on those three), and scipy's optimum on each
+    of them; the float64 ladder's and the rounds kernel's registers and
+    spills where this process built them."""
     from benchmark import plugins
+    from sparse_linear_assignment_tpu_torch.ops import _build
 
     cell = plugins.cell(CONFIG_A_CELL)
     config = cell.config
@@ -1448,7 +1456,9 @@ def phase_ksp_ladder(port, batch, ka):
     for seed, (b, n, k, density, integer) in enumerate([
             (4, 64, 8, 0.05, True), (4, 64, 40, 0.3, False),
             (5, 200, 48, 0.1, False), (3, 300, 176, 0.3, False),
-            (4, 256, 40, 0.04, True)]):
+            (4, 256, 40, 0.04, True),
+            (3, 256, ka.burst_rule()[1] + 1, 0.9, False),
+            (3, 256, ka.burst_rule()[1] + 1, 0.9, True)]):
         gen.manual_seed(SEED + 400 + seed)
         cols, vals = config_a_arcs(gen, b, n, k,
                                    dict(config, density=density))
@@ -1473,6 +1483,8 @@ def phase_ksp_ladder(port, batch, ka):
             assert not bad, ("ladder kernel, small case", seed, rounds, bad)
             small += 1
         assert not bool(ksp_active(got[0]).any()), "a small ladder undone"
+        wide = k > ka.burst_rule()[1]
+        assert (int(got[1].bursts.sum()) == 0) == wide, ("bursts", seed, k)
 
     # the cell's batch, through the entry points
     spec = cell.spec
@@ -1525,12 +1537,21 @@ def phase_ksp_ladder(port, batch, ka):
         assert sol.objective[i] == padded_scipy_objective(
             c_host[i], v_host[i], n), ("config A optimum", i)
     rbp = sol.rounds_by_phase
+    ptxas = {name: row for name, row in _build.ptxas_table(
+        _build.BUILD_LOG.get("ksp_arcs_kernel", "")).items()
+        if "ksp_arcs_rounds_kernel" in name
+        or "ksp_arcs_ladder_kernelId" in name}
     emit({"phase": "ksp_ladder", "config": "reference crate config A",
           "cell": CONFIG_A_CELL, "shape": [b, n, n, k], "eps": CONFIG_A_EPS,
           "dtype": "float64", "small_cases": small,
           "arcs_mean": float((cols >= 0).sum(dim=2).float().mean()),
           "stage_ms": stage_ms, "first_solve_ms": solve_ms,
           "ladder_launches": launches, "ms": kernel_ms,
+          "ms_before_burst": list(LADDER_MS_BEFORE_BURST),
+          "burst_round_share_pct": 100.0 * float(sol.burst_rounds.sum())
+          / float(sol.nits.sum()),
+          "burst_rounds": [int(sol.burst_rounds[i]) for i in picks],
+          "ptxas": ptxas,
           "bound_ms": bound_ms, "bound_by": "bytes",
           "roofline_pct": 100.0 * bound_ms / kernel_ms,
           "nits_p50": float(np.median(sol.nits)),

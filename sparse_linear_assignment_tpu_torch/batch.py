@@ -130,6 +130,7 @@ from .ops.ksparse_kernel import (
 from .ops.stage import stage as _stage  # the FR routes' staging
 from .solution import UNASSIGNED, convert_indices, o2p_from_p2o_device
 from .utils.trace import (
+    BURST_ROUNDS,
     FINISH_SPAN,
     LAST_PHASE_ROUNDS,
     ROUNDS_BY_PHASE,
@@ -214,6 +215,10 @@ class BatchSolution:
     #: int32 [B, P]: the rounds of each phase of an eps-scaling ladder
     #: (the sparse entry points' ``scale_eps``), None without one
     rounds_by_phase: Optional[np.ndarray] = None
+    #: int32 [B]: the ladder's rounds that bid in one burst
+    #: (``ops/ksparse_arcs.py``'s ``Ladder.bursts``), beside
+    #: ``rounds_by_phase``
+    burst_rounds: Optional[np.ndarray] = None
 
     def astype_index(self, index_dtype) -> "BatchSolution":
         """A copy with both assignment arrays in another index width
@@ -490,7 +495,8 @@ def _device_objective(work, p2o, negate: bool) -> torch.Tensor:
 
 
 def _batch_solution(p2o: torch.Tensor, m: int, objective, eps,
-                    nits, rounds_by_phase=None) -> BatchSolution:
+                    nits, rounds_by_phase=None,
+                    burst_rounds=None) -> BatchSolution:
     """The result of a batch solve from its final matching ``p2o [B, N]``
     (int32, on whichever device holds it): object→person and the
     unassigned counts built there (``o2p_from_p2o_device``, which
@@ -508,34 +514,35 @@ def _batch_solution(p2o: torch.Tensor, m: int, objective, eps,
     instead be a function of the host matching, called after the
     readback, where the route picks it from host costs.
     ``rounds_by_phase``, an int32 ``[B, P]`` tensor beside the matching,
-    comes back in the same transfer."""
+    and ``burst_rounds`` (``[B]``) come back in the same transfer."""
     b, n = p2o.shape
     o2p, num_unassigned = o2p_from_p2o_device(p2o, m)
-    parts = [p2o.reshape(-1), o2p.reshape(-1), num_unassigned]
-    if rounds_by_phase is not None:
-        parts.append(rounds_by_phase.reshape(-1).to(torch.int32))
+    extras = {k: v for k, v in (("rounds_by_phase", rounds_by_phase),
+                                ("burst_rounds", burst_rounds))
+              if v is not None}
+    parts = [p2o.reshape(-1), o2p.reshape(-1), num_unassigned,
+             *(v.reshape(-1).to(torch.int32) for v in extras.values())]
     packed = torch.cat(parts)
     host = packed
     if packed.is_cuda:
         host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
         host.copy_(packed)
-    flat = host.numpy()
-    p2o = flat[:b * n].reshape(b, n)
+    views = np.split(host.numpy(), np.cumsum([x.numel() for x in parts]))
+    p2o = views[0].reshape(b, n)
     if callable(objective):
         objective = objective(p2o)
     objective, eps, nits = (
         x.cpu().numpy() if isinstance(x, torch.Tensor) else x
         for x in (objective, eps, nits))
-    end = b * (n + m + 1)
     return BatchSolution(
         person_to_object=p2o,
-        object_to_person=flat[b * n:b * (n + m)].reshape(b, m),
-        num_unassigned=flat[b * (n + m):end],
+        object_to_person=views[1].reshape(b, m),
+        num_unassigned=views[2],
         objective=objective,
         eps=eps.astype(np.float64, copy=False),
         nits=nits,
-        rounds_by_phase=(None if rounds_by_phase is None
-                         else flat[end:].reshape(b, -1)),
+        **{k: x.reshape(v.shape) for (k, v), x in zip(extras.items(),
+                                                      views[3:])},
     )
 
 
@@ -1626,19 +1633,22 @@ def _sparse_finish(st: _SparseStaged, ctx: dict,
                     UNASSIGNED,
                 ).to(torch.int32)
             ladder = ctx["ladder"]["at"]
+            counts = () if ladder is None else (ladder.rounds, ladder.bursts)
             sol = _batch_solution(
                 p2o, st.m, objective, np.full(p2o.shape[0], st.eps_val),
-                states.nits, None if ladder is None else ladder.rounds)
+                states.nits, *counts)
             if st.scale_eps:
                 _phase_counters(sol)
             return sol
 
 
 def _phase_counters(sol: BatchSolution) -> None:
-    """A scaled solve's rounds by phase: one phase where no ladder ran
-    (a rectangular batch); the program's counters of them."""
+    """A scaled solve's rounds by phase and its burst rounds: one phase
+    and none where no ladder ran (a rectangular batch); the program's
+    counters of them."""
     if sol.rounds_by_phase is None:
         sol.rounds_by_phase = sol.nits.reshape(-1, 1)
+        sol.burst_rounds = np.zeros_like(sol.nits)
     rbp = sol.rounds_by_phase
 
     def last():
@@ -1649,6 +1659,7 @@ def _phase_counters(sol: BatchSolution) -> None:
 
     counter(LAST_PHASE_ROUNDS, last)
     counter(ROUNDS_BY_PHASE, lambda: rbp.max(axis=0))
+    counter(BURST_ROUNDS, lambda: (sol.burst_rounds.sum(), rbp.sum()))
 
 
 def _sparse_solve_staged(st: _SparseStaged, max_rounds: int,

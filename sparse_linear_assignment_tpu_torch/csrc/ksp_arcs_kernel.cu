@@ -81,8 +81,22 @@
 // matching.  Its rows are distinct (the staging clears repeated columns), so
 // its rounds leave the repeat test out (run_rounds' kDistinct), which at 176
 // slots a row would cost ten 32-lane scans a person a round; they keep no
-// round log and no counters.  It is a kernel of its own, so that the ladder's
-// phase loop adds no code to the rounds kernel's launches.
+// round log.  It is a kernel of its own, so that the ladder's phase loop adds
+// no code to the rounds kernel's launches.
+//
+// The ladder's few-bidder rounds bid in one burst (B', kDistinct only).  Most
+// of a config A instance's rounds list a few persons (at most 8 in about nine
+// rounds of ten): B would put them in one or two warps, which walk each row a
+// 32-slot chunk at a time, a row load and then the price gathers that depend
+// on it, six times in turn at 176 slots, each a trip to device memory or L2.
+// A round whose list holds at most kBurstPersons persons (one a warp) over
+// rows of at most 32 * kBurstChunks slots (burst_round) gives warp w list
+// slot w instead: each lane issues the column and value loads of all its
+// slots of the row, then all their price gathers, before it folds any, so
+// the round waits for one row load and one gather, not six of each.  A lane
+// folds its slots in B's order and the warp merge and the post are B's
+// (post_bid), so the result is bit-equal.  Every other round takes B.  The
+// ladder counts, by thread 0, the rounds that took the burst (`bursts`).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,6 +111,22 @@ constexpr int kBlocksPerSm = 4;
 // persons a warp works on at once: their row loads, then their price
 // gathers, are in flight together
 constexpr int kPersonsInFlight = 4;
+// the ladder's burst (run_rounds' kDistinct rounds): a round whose list
+// holds at most kBurstPersons persons, one a warp, over rows of at most
+// 32 * kBurstChunks slots bids from each person's whole row at once.  The
+// wrapper's plain version reads both numbers from this source
+// (ops/ksparse_arcs.py: burst_rule).  Seven chunks are the
+// most that leave the float64 ladder's spills as they were without the
+// burst (72 bytes; eight spill 84).
+constexpr int kBurstPersons = 8;
+constexpr int kBurstChunks = 7;
+static_assert(kBurstPersons == kThreads / 32, "one listed person a warp");
+
+// whether a ladder round of `nact` listed persons over rows of K slots
+// bids in one burst
+__device__ __forceinline__ bool burst_round(int nact, int K) {
+  return nact <= kBurstPersons && K <= 32 * kBurstChunks;
+}
 
 // phase counters, as csrc/ksp_kernel.cu counts them (ops/ksparse_kernel.py:
 // PHASES); `prices` stays 0, float64's winner pass is part of `apply`
@@ -272,11 +302,52 @@ __device__ __forceinline__ int first_list(const Instance<T>& in, int* cnt,
   return cnt[0];
 }
 
+// One lane's post of listed person `mi` (list slot `mk`) from its merged
+// top-2 (best `mb` at column `ma`, whose value is `mv`; second `ms`): the
+// drop test, or the bid's atomicMax on its object, the one bid that finds
+// the key at rest displacing the owner into the next list; then the
+// slot's target.
+template <typename T>
+__device__ __forceinline__ void post_bid(const Instance<T>& in, T thr, T eps,
+                                         int mi, int mk, T mb, T ms, int ma,
+                                         T mv, int32_t* next,
+                                         int* next_cnt) {
+  constexpr bool kPacked = sizeof(T) == 4;
+  int32_t t = kNoArc;
+  if (ma != kUnassigned) {
+    const T price_at_best = mv - mb;
+    if (price_at_best > thr) {
+      in.drop[mi] = 1;
+      t = kDropped;
+    } else {
+      const T bid =
+          (ms != Arith<T>::neg_inf() ? mv - ms : price_at_best) + eps;
+      const unsigned long long key = Arith<T>::key(bid, mi);
+      t = ma;
+      const unsigned long long was = atomicMax(in.keys + ma, key);
+      if (Arith<T>::at_rest(was)) {
+        // the round's first bid on the object: the owner leaves;
+        // float64 clears the winner slot for this round
+        if (was != 0ull) {
+          const int32_t owner = key_bidder(was);
+          in.p2o[owner] = kUnassigned;
+          next[atomicAdd(next_cnt, 1)] = owner;
+        }
+        if (!kPacked) __stcg(in.winner + ma, kUnassigned);
+      }
+      if (!kPacked) in.bidkey[mk] = key;
+    }
+  }
+  in.tgt[mk] = t;
+}
+
 // The rounds of both kernels (B, float64's winner pass, C) at one eps and
 // one drop threshold: up to `rounds` rounds from the list `cur` of `nact`
 // persons.  Returns the rounds run and leaves `nact` and `cur` at the next
 // list (nact 0: no person is active).  kDistinct: every row lists a column
-// once, and the repeat test is left out.  `lap(slot)` closes a profiling
+// once, and the repeat test is left out; a round that burst_round admits
+// then bids in one burst (B'), the ladder's few-bidder rounds, which the
+// rounds kernel's code never holds.  `lap(slot)` closes a profiling
 // interval, `start(nact)` sees a round begin and `end(ran, nact)` end; the
 // ladder passes empty ones, which compile away.
 template <typename T, bool kDistinct, typename Lap, typename Start,
@@ -300,108 +371,122 @@ __device__ __forceinline__ int run_rounds(const Instance<T>& in, int* cnt,
     int* next_cnt = &cnt[cur ^ 1];
     start(nact);
 
-    // B. bids: P listed persons a warp at once
-    for (int k0 = warp * P; k0 < nact; k0 += nwarps * P) {
-      int person[P];
-      T best[P], second[P], best_val[P];
-      int arg[P];
+    // B. bids
+    if (kDistinct && burst_round(nact, K)) {
+      // B'. a few-bidder round: warp w takes list slot w, and each lane
+      // issues its kBurstChunks slots' column and value loads, then their
+      // price gathers, before it folds any into its top-2 (in slot order)
+      if (warp < nact) {
+        const int person = list[warp];
+        const size_t row = static_cast<size_t>(person) * K;
+        int col[kBurstChunks];
+        T val[kBurstChunks];
 #pragma unroll
-      for (int u = 0; u < P; ++u) {
-        person[u] = k0 + u < nact ? list[k0 + u] : -1;
-        best[u] = second[u] = ninf;
-        best_val[u] = T(0);
-        arg[u] = kUnassigned;
-      }
-      for (int s0 = 0; s0 < K; s0 += 32) {
-        const int s = s0 + lane;
-        int col[P];
-        T val[P];
-#pragma unroll
-        for (int u = 0; u < P; ++u) {
-          col[u] = -1;
-          val[u] = T(0);
-          if (person[u] >= 0 && s < K) {
-            const size_t at = static_cast<size_t>(person[u]) * K + s;
-            col[u] = __ldg(in.cols + at);
-            val[u] = __ldg(in.vals + at);
+        for (int c = 0; c < kBurstChunks; ++c) {
+          const int s = c * 32 + lane;
+          col[c] = -1;
+          val[c] = T(0);
+          if (s < K) {
+            col[c] = __ldg(in.cols + row + s);
+            val[c] = __ldg(in.vals + row + s);
           }
         }
-        T price[P];
+        T price[kBurstChunks];
+#pragma unroll
+        for (int c = 0; c < kBurstChunks; ++c)
+          price[c] = col[c] >= 0 ? __ldcg(in.prices + col[c]) : T(0);
+        T best = ninf, second = ninf, best_val = T(0);
+        int arg = kUnassigned;
+#pragma unroll
+        for (int c = 0; c < kBurstChunks; ++c) {
+          if (col[c] >= 0)
+            top2_take_col(val[c] - price[c], val[c], col[c], best, second,
+                          arg, best_val);
+        }
+        top2_merge(best, second, arg, best_val);
+        if (lane == 0)
+          post_bid(in, thr, eps, person, warp, best, second, arg, best_val,
+                   next, next_cnt);
+      }
+    } else {
+      // P listed persons a warp at once
+      for (int k0 = warp * P; k0 < nact; k0 += nwarps * P) {
+        int person[P];
+        T best[P], second[P], best_val[P];
+        int arg[P];
 #pragma unroll
         for (int u = 0; u < P; ++u) {
-          price[u] = T(0);
+          person[u] = k0 + u < nact ? list[k0 + u] : -1;
+          best[u] = second[u] = ninf;
+          best_val[u] = T(0);
+          arg[u] = kUnassigned;
+        }
+        for (int s0 = 0; s0 < K; s0 += 32) {
+          const int s = s0 + lane;
+          int col[P];
+          T val[P];
+#pragma unroll
+          for (int u = 0; u < P; ++u) {
+            col[u] = -1;
+            val[u] = T(0);
+            if (person[u] >= 0 && s < K) {
+              const size_t at = static_cast<size_t>(person[u]) * K + s;
+              col[u] = __ldg(in.cols + at);
+              val[u] = __ldg(in.vals + at);
+            }
+          }
+          T price[P];
+#pragma unroll
+          for (int u = 0; u < P; ++u) {
+            price[u] = T(0);
+            if (person[u] < 0) continue;  // uniform over the warp
+            if constexpr (!kDistinct) {
+              // a slot whose column a later slot of the row repeats is no
+              // arc: the plane keeps the later slot's value
+              const unsigned above = ~((2u << lane) - 1u);  // later lanes
+              const unsigned same = __match_any_sync(
+                  kFull, col[u] >= 0 ? col[u] : -1 - lane);
+              bool later = col[u] >= 0 && (same & above) != 0u;
+              for (int s1 = s0 + 32; s1 < K; s1 += 32) {
+                const int c1 =
+                    s1 + lane < K
+                        ? __ldg(in.cols + static_cast<size_t>(person[u]) * K +
+                                s1 + lane)
+                        : -1;
+                for (int q = 0; q < 32; ++q) {
+                  const int other = __shfl_sync(kFull, c1, q);  // every lane
+                  later |= col[u] >= 0 && other == col[u];
+                }
+              }
+              if (later) col[u] = -1;
+            }
+            if (col[u] >= 0) price[u] = __ldcg(in.prices + col[u]);
+          }
+#pragma unroll
+          for (int u = 0; u < P; ++u) {
+            if (person[u] >= 0 && col[u] >= 0)
+              top2_take_col(val[u] - price[u], val[u], col[u], best[u],
+                            second[u], arg[u], best_val[u]);
+          }
+        }
+        // the warp's merge of each person, then lane u posts person u's bid
+        T mb = ninf, ms = ninf, mv = T(0);
+        int ma = kUnassigned, mi = -1, mk = 0;
+#pragma unroll
+        for (int u = 0; u < P; ++u) {
           if (person[u] < 0) continue;  // uniform over the warp
-          if constexpr (!kDistinct) {
-            // a slot whose column a later slot of the row repeats is no
-            // arc: the plane keeps the later slot's value
-            const unsigned above = ~((2u << lane) - 1u);  // later lanes
-            const unsigned same = __match_any_sync(
-                kFull, col[u] >= 0 ? col[u] : -1 - lane);
-            bool later = col[u] >= 0 && (same & above) != 0u;
-            for (int s1 = s0 + 32; s1 < K; s1 += 32) {
-              const int c1 =
-                  s1 + lane < K
-                      ? __ldg(in.cols + static_cast<size_t>(person[u]) * K +
-                              s1 + lane)
-                      : -1;
-              for (int q = 0; q < 32; ++q) {
-                const int other = __shfl_sync(kFull, c1, q);  // every lane
-                later |= col[u] >= 0 && other == col[u];
-              }
-            }
-            if (later) col[u] = -1;
-          }
-          if (col[u] >= 0) price[u] = __ldcg(in.prices + col[u]);
-        }
-#pragma unroll
-        for (int u = 0; u < P; ++u) {
-          if (person[u] >= 0 && col[u] >= 0)
-            top2_take_col(val[u] - price[u], val[u], col[u], best[u],
-                          second[u], arg[u], best_val[u]);
-        }
-      }
-      // the warp's merge of each person, then lane u posts person u's bid
-      T mb = ninf, ms = ninf, mv = T(0);
-      int ma = kUnassigned, mi = -1, mk = 0;
-#pragma unroll
-      for (int u = 0; u < P; ++u) {
-        if (person[u] < 0) continue;  // uniform over the warp
-        top2_merge(best[u], second[u], arg[u], best_val[u]);
-        if (lane == u) {
-          mb = best[u];
-          ms = second[u];
-          ma = arg[u];
-          mv = best_val[u];
-          mi = person[u];
-          mk = k0 + u;
-        }
-      }
-      if (lane < P && mi >= 0) {
-        int32_t t = kNoArc;
-        if (ma != kUnassigned) {
-          const T price_at_best = mv - mb;
-          if (price_at_best > thr) {
-            in.drop[mi] = 1;
-            t = kDropped;
-          } else {
-            const T bid = (ms != ninf ? mv - ms : price_at_best) + eps;
-            const unsigned long long key = Arith<T>::key(bid, mi);
-            t = ma;
-            const unsigned long long was = atomicMax(in.keys + ma, key);
-            if (Arith<T>::at_rest(was)) {
-              // the round's first bid on the object: the owner leaves;
-              // float64 clears the winner slot for this round
-              if (was != 0ull) {
-                const int32_t owner = key_bidder(was);
-                in.p2o[owner] = kUnassigned;
-                next[atomicAdd(next_cnt, 1)] = owner;
-              }
-              if (!kPacked) __stcg(in.winner + ma, kUnassigned);
-            }
-            if (!kPacked) in.bidkey[mk] = key;
+          top2_merge(best[u], second[u], arg[u], best_val[u]);
+          if (lane == u) {
+            mb = best[u];
+            ms = second[u];
+            ma = arg[u];
+            mv = best_val[u];
+            mi = person[u];
+            mk = k0 + u;
           }
         }
-        in.tgt[mk] = t;
+        if (lane < P && mi >= 0)
+          post_bid(in, thr, eps, mi, mk, mb, ms, ma, mv, next, next_cnt);
       }
     }
     lap(kProfBids);
@@ -598,7 +683,8 @@ __device__ __forceinline__ T block_max_price(const T* prices, int M,
 // once to T, the matching and the drops are reset and every person is
 // listed; prices stay.  The state between launches is p2o, dropped, prices,
 // nits and the ladder's `steps`, `thresholds` and `phase` (updated in
-// place); `phase_rounds [B, P]` gains each phase's rounds.  A launch ends an
+// place); `phase_rounds [B, P]` gains each phase's rounds and `bursts [B]`
+// the rounds that bid in one burst (burst_round).  A launch ends an
 // instance's rounds after `rounds` of them (a phase that ends in the last
 // one still hands over to the next), so a later launch continues.  The
 // columns of a row are distinct (the staging clears a repeated column's
@@ -612,9 +698,9 @@ ksp_arcs_ladder_kernel(const int32_t* __restrict__ cols,
                        int32_t* __restrict__ nits, T* thresholds,
                        int32_t* scratch, const double* __restrict__ spans,
                        double* steps, int32_t* phase,
-                       int32_t* __restrict__ phase_rounds, int P,
-                       double target, double half_m, int N, int M, int K,
-                       int rounds) {
+                       int32_t* __restrict__ phase_rounds,
+                       int32_t* __restrict__ bursts, int P, double target,
+                       double half_m, int N, int M, int K, int rounds) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   __shared__ int cnt[2];
@@ -627,13 +713,14 @@ ksp_arcs_ladder_kernel(const int32_t* __restrict__ cols,
   double step = steps[b];
   T thr = thresholds[b];
   int ph = phase[b];
-  int left = rounds, ran = 0, cur = 0;
+  int left = rounds, ran = 0, cur = 0, burst = 0;
   while (true) {
     if (nact > 0 && left > 0) {
       const T eps = static_cast<T>(step > target ? step : target);
-      const int r = run_rounds<T, true>(in, cnt, thr, eps, N, K, left, nact,
-                                        cur, [](int) {}, [](int) {},
-                                        [](int, int) {});
+      const int r = run_rounds<T, true>(
+          in, cnt, thr, eps, N, K, left, nact, cur, [](int) {},
+          [&](int active) { burst += burst_round(active, K); },
+          [](int, int) {});
       if (tid == 0 && ph < P)
         phase_rounds[static_cast<size_t>(b) * P + ph] += r;
       ran += r;
@@ -660,6 +747,7 @@ ksp_arcs_ladder_kernel(const int32_t* __restrict__ cols,
   }
   if (tid == 0) {
     nits[b] += ran;
+    bursts[b] += burst;
     steps[b] = step;
     thresholds[b] = thr;
     phase[b] = ph;
@@ -671,8 +759,8 @@ int launch_ladder(const void* cols, const void* vals, void* prices,
                   void* keys, void* winner, void* p2o, void* dropped,
                   void* nits, void* thresholds, void* scratch,
                   const void* spans, void* steps, void* phase,
-                  void* phase_rounds, int P, double target, double half_m,
-                  int B, int N, int M, int K, int rounds,
+                  void* phase_rounds, void* bursts, int P, double target,
+                  double half_m, int B, int N, int M, int K, int rounds,
                   cudaStream_t stream) {
   ksp_arcs_ladder_kernel<T><<<B, kThreads, 0, stream>>>(
       static_cast<const int32_t*>(cols), static_cast<const T*>(vals),
@@ -681,8 +769,8 @@ int launch_ladder(const void* cols, const void* vals, void* prices,
       static_cast<unsigned char*>(dropped), static_cast<int32_t*>(nits),
       static_cast<T*>(thresholds), static_cast<int32_t*>(scratch),
       static_cast<const double*>(spans), static_cast<double*>(steps),
-      static_cast<int32_t*>(phase), static_cast<int32_t*>(phase_rounds), P,
-      target, half_m, N, M, K, rounds);
+      static_cast<int32_t*>(phase), static_cast<int32_t*>(phase_rounds),
+      static_cast<int32_t*>(bursts), P, target, half_m, N, M, K, rounds);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -726,8 +814,9 @@ extern "C" int slap_ksp_arcs_rounds(const void* cols, const void* vals,
 // The ladder (ksp_arcs_ladder_kernel): the arguments of slap_ksp_arcs_rounds
 // without the counters, the log and eps, with thresholds [B] updated in
 // place, and spans [B] (float64, each instance's value span), steps [B]
-// (float64, the current phase's step), phase [B] int32 and phase_rounds
-// [B, P] int32, the last three updated in place; target is the last phase's
+// (float64, the current phase's step), phase [B] int32, phase_rounds
+// [B, P] int32 and bursts [B] int32 (the rounds that bid in one burst), the
+// last four updated in place; target is the last phase's
 // eps and half_m half the objects the drop threshold counts.  The columns of
 // a row must be distinct.
 extern "C" int slap_ksp_arcs_ladder(const void* cols, const void* vals,
@@ -735,25 +824,26 @@ extern "C" int slap_ksp_arcs_ladder(const void* cols, const void* vals,
                                     void* p2o, void* dropped, void* nits,
                                     void* thresholds, void* scratch,
                                     const void* spans, void* steps,
-                                    void* phase, void* phase_rounds, int P,
-                                    double target, double half_m,
+                                    void* phase, void* phase_rounds,
+                                    void* bursts, int P, double target,
+                                    double half_m,
                                     int value_bytes, int B, int N, int M,
                                     int K, int rounds, void* stream) {
   if (B <= 0) return 0;
   if (N <= 0 || M <= 0 || K <= 0 || P <= 0 || scratch == nullptr ||
-      (value_bytes == 8) != (winner != nullptr))
+      bursts == nullptr || (value_bytes == 8) != (winner != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   if (value_bytes == 4)
     return launch_ladder<float>(cols, vals, prices, keys, winner, p2o,
                                 dropped, nits, thresholds, scratch, spans,
-                                steps, phase, phase_rounds, P, target, half_m,
-                                B, N, M, K, rounds, s);
+                                steps, phase, phase_rounds, bursts, P, target,
+                                half_m, B, N, M, K, rounds, s);
   if (value_bytes == 8)
     return launch_ladder<double>(cols, vals, prices, keys, winner, p2o,
                                  dropped, nits, thresholds, scratch, spans,
-                                 steps, phase, phase_rounds, P, target,
-                                 half_m, B, N, M, K, rounds, s);
+                                 steps, phase, phase_rounds, bursts, P,
+                                 target, half_m, B, N, M, K, rounds, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

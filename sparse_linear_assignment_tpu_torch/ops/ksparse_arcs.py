@@ -40,7 +40,16 @@ kernel is bound by their latency, not by bytes.  The design:
   with one ``__match_any_sync``; one 64-bit ``atomicMax`` posts a bid;
 - between rounds a key rests at its object's owner, so the one bid that
   finds it at rest displaces the owner, and the apply pass walks only
-  the round's entries: two barriers a round.
+  the round's entries: two barriers a round;
+- the ladder's few-bidder rounds in one burst: a ladder round whose list
+  holds at most 8 persons (one a warp) over rows of at most 224 slots
+  (:func:`burst_rule`) gives each person a warp, whose lanes
+  issue the loads of the whole row, then all its price gathers, before
+  folding any: one row load and one gather to wait for, where four
+  persons to a warp walking 32 slots at a time wait for six of each at
+  config A's 176 slots.  Such rounds are most of a config A instance's;
+  every other round, and every round of the fixed-ε kernel, takes the
+  walk above.  ``Ladder.bursts`` counts them.
 
 ``phase_cycles`` splits the leader thread's cycles by phase
 (``ksparse_kernel.PHASES``); ``stamps`` gives each CTA's start and end;
@@ -72,6 +81,8 @@ the reference crate's config A (10,000², ε = 2^-15/10,001) in 14,000 to
 from __future__ import annotations
 
 import ctypes
+import functools
+import re
 from typing import NamedTuple
 
 import numpy as np
@@ -94,6 +105,22 @@ LADDER_LAUNCHES = 0
 #: (``ops/compact.py:khosla_solve_scaled``'s ``reduction_factor``)
 LADDER_FACTOR = 0.125
 
+
+@functools.cache
+def burst_rule() -> tuple:
+    """``(persons, slots)``: a ladder round bids in one burst where its
+    list holds at most ``persons`` persons and its rows at most
+    ``slots`` slots (``csrc/ksp_arcs_kernel.cu``'s ``burst_round``).  Read
+    from the kernel's source, the one place that states the two numbers
+    (``kBurstPersons``, and ``kBurstChunks`` chunks of 32 slots), so
+    that the plain version counts such rounds by the kernel's rule."""
+    text = (_build.CSRC / "ksp_arcs_kernel.cu").read_text()
+    persons, chunks = (
+        int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+        for name in ("kBurstPersons", "kBurstChunks"))
+    return persons, 32 * chunks
+
+
 _lib = None
 
 
@@ -109,7 +136,7 @@ def _kernel_lib() -> ctypes.CDLL:
         ]
         lib.slap_ksp_arcs_rounds.restype = ctypes.c_int
         lib.slap_ksp_arcs_ladder.argtypes = [
-            p, p, p, p, p, p, p, p, p, p, p, p, p, p, ctypes.c_int,
+            p, p, p, p, p, p, p, p, p, p, p, p, p, p, p, ctypes.c_int,
             ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
         ]
@@ -391,6 +418,7 @@ class Ladder(NamedTuple):
     thresholds: torch.Tensor  # [B], the values' dtype: its drop threshold
     phase: torch.Tensor       # [B] int32: the current phase
     rounds: torch.Tensor      # [B, P] int32: the rounds run in each phase
+    bursts: torch.Tensor      # [B] int32: the rounds that bid in one burst
 
 
 def ladder_steps(span: float, eps_target: float) -> list:
@@ -423,6 +451,7 @@ def ladder_init(spans, eps_target: float, m: int, dtype,
         phase=torch.zeros(len(spans), dtype=torch.int32, device=device),
         rounds=torch.zeros((len(spans), phases), dtype=torch.int32,
                            device=device),
+        bursts=torch.zeros(len(spans), dtype=torch.int32, device=device),
     )
 
 
@@ -439,7 +468,8 @@ def _check_ladder(values, ladder: Ladder) -> None:
     for name, t, dtype in (("spans", ladder.spans, torch.float64),
                            ("steps", ladder.steps, torch.float64),
                            ("thresholds", ladder.thresholds, values.dtype),
-                           ("phase", ladder.phase, torch.int32)):
+                           ("phase", ladder.phase, torch.int32),
+                           ("bursts", ladder.bursts, torch.int32)):
         if tuple(t.shape) != (b,) or t.dtype != dtype:
             raise ValueError(f"ladder.{name} must be a {dtype} [{b}] tensor")
     r = ladder.rounds
@@ -463,19 +493,25 @@ def ksp_arcs_ladder_reference(columns, values, states: KhoslaState,
     max(0, the largest price)`` in float64 rounded once, and the
     matching and the drops are reset, prices kept.  At most ``rounds``
     rounds; any float dtype; repeated columns as the plane keeps them.
-    Returns ``(states, ladder)``."""
+    ``ladder.bursts`` gains the rounds the kernel bids in one burst
+    (:func:`burst_rule`).  Returns ``(states, ladder)``."""
     check_arcs(columns, values, states, ladder.thresholds)
     _check_ladder(values, ladder)
-    b = values.shape[0]
+    b, _, k = values.shape
     dtype, dev = values.dtype, values.device
     valid = (columns >= 0) & ~later_repeat(columns)
     rows = torch.arange(b, device=dev)
     target = torch.full((b,), eps_target, dtype=torch.float64, device=dev)
+    persons, slots = burst_rule()
     s, lad = states, ladder._replace(rounds=ladder.rounds.clone())
     for _ in range(rounds):
-        busy = ((s.p2o == UNASSIGNED) & ~s.dropped).any(dim=1)
+        live = ((s.p2o == UNASSIGNED) & ~s.dropped).sum(dim=1)
+        busy = live > 0
         if not bool(busy.any()):
             break
+        if k <= slots:
+            lad = lad._replace(bursts=lad.bursts + (
+                busy & (live <= persons)).to(torch.int32))
         eps = torch.where(lad.steps > target, lad.steps, target).to(dtype)
         s = _arcs_round(columns, values, valid, s, eps, lad.thresholds)
         at = lad.phase.long().clamp(max=lad.rounds.shape[1] - 1)
@@ -549,7 +585,8 @@ def ksp_arcs_ladder(columns, values, states: KhoslaState, ladder: Ladder,
             p2o.data_ptr(), dropped.data_ptr(), nits.data_ptr(),
             lad.thresholds.data_ptr(), scratch.data_ptr(),
             lad.spans.data_ptr(), lad.steps.data_ptr(), lad.phase.data_ptr(),
-            lad.rounds.data_ptr(), lad.rounds.shape[1], float(eps_target),
+            lad.rounds.data_ptr(), lad.bursts.data_ptr(),
+            lad.rounds.shape[1], float(eps_target),
             m / 2.0, 8 if double else 4, b, n, width, k, int(rounds), stream,
         )
     if rc != 0:

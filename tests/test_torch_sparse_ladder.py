@@ -10,10 +10,14 @@
   scipy's ``linear_sum_assignment`` on the dense costs; rounds by phase
   sum to ``nits``; the fixed-ε route unchanged without ``scale_eps``; a
   rectangular batch runs one phase; a stopped ladder continues where it
-  stopped; the counters in a profiler's trace.
+  stopped; the counters in a profiler's trace; the burst rounds (a round
+  of at most ``PERSONS`` active persons over rows of at most ``SLOTS``
+  slots, ``ksparse_arcs.burst_rule``) counted round by round, none past
+  that width.
 - Card (``card`` marker, skipped without a CUDA device): the ladder
   kernel bit-equal to its plain version (prices, ``p2o``, ``nits``, the
-  ladder's state, rounds by phase), whole and continued.  No JAX here:
+  ladder's state, rounds by phase, burst rounds), whole and continued,
+  on rows of one chunk to one past the widest burst.  No JAX here:
   on the card run ``python -m pytest --noconftest
   tests/test_torch_sparse_ladder.py -m card``.
 """
@@ -37,6 +41,8 @@ torch.set_num_threads(1)
 UNASSIGNED = 2**31 - 1
 CONFIG = {"density": 0.04, "value_low": 500, "value_high": 1000}
 STATE = ("prices", "p2o", "dropped", "nits")
+#: the kernel's burst rule: active persons and slots a row at most
+PERSONS, SLOTS = ka.burst_rule()
 
 
 def square(seed, n, b=4, k=48, config=CONFIG, device="cpu"):
@@ -261,15 +267,27 @@ def test_repeated_columns_keep_their_later_slot():
             assert torch.equal(x, y)
 
 
-def test_counters_mark_a_recorded_solve(tmp_path):
-    cols, vals = square(19, 32, b=2, k=24)
+def recorded(tmp_path, run):
+    """``run()``'s result and the names of the profiler's events."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        sol = scaled("staged", cols, vals, 32, eps_of(32))
+        sol = run()
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
-    names = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
-             if e.get("ph") == "X"]
+    return sol, [e["name"] for e in json.loads(path.read_text())[
+        "traceEvents"] if e.get("ph") == "X"]
+
+
+def marked(names, name):
+    """Each mark of the counter ``name``, as a list of its numbers."""
+    return [[int(v) for v in x.split("=")[1].split(",")] for x in names
+            if x.startswith(name + "=")]
+
+
+def test_counters_mark_a_recorded_solve(tmp_path):
+    cols, vals = square(19, 32, b=2, k=24)
+    sol, names = recorded(
+        tmp_path, lambda: scaled("staged", cols, vals, 32, eps_of(32)))
     last = [int(x.split("=")[1]) for x in names
             if x.startswith(trace.LAST_PHASE_ROUNDS + "=")]
     rbp = sol.rounds_by_phase
@@ -278,6 +296,76 @@ def test_counters_mark_a_recorded_solve(tmp_path):
     by_phase = [x for x in names if x.startswith(trace.ROUNDS_BY_PHASE)]
     assert by_phase[-1].split("=")[1] == ",".join(
         str(v) for v in rbp.max(axis=0))
+    bursts = marked(names, trace.BURST_ROUNDS)
+    assert len(bursts) == 2  # one a batch
+    assert bursts[-1] == [int(sol.burst_rounds.sum()), int(rbp.sum())]
+    assert 0 < bursts[-1][0] < bursts[-1][1]
+
+
+def pad_slots(cols, vals, k):
+    """The arcs in rows of ``k`` slots, ``-1`` pads after them."""
+    b, n, k0 = cols.shape
+    return (torch.cat([cols, torch.full((b, n, k - k0), -1, dtype=cols.dtype)],
+                      dim=2),
+            torch.cat([vals, torch.zeros((b, n, k - k0), dtype=vals.dtype)],
+                      dim=2))
+
+
+@pytest.mark.parametrize("k", [24, SLOTS, SLOTS + 1])
+def test_burst_rounds_are_the_few_bidder_rounds(k):
+    """The plain ladder, one round a call: an instance's burst count
+    gains one in each round that starts with at most ``PERSONS`` active
+    persons, where the rows hold at most ``SLOTS`` slots,
+    and the whole run counts the same."""
+    cols, vals = pad_slots(*square(31, 32, b=3, k=24), k)
+    st = port.stage_batch_sparse_device(cols, vals, 32, eps=eps_of(32),
+                                        device="cpu", scale_eps=True)
+    work, eps = st.work_device, st.eps_val
+    s0 = ka.arcs_init(work, 32)
+    s, lad = s0, st.ladder
+    want = torch.zeros(3, dtype=torch.int32)
+    while True:
+        live = ((s.p2o == UNASSIGNED) & ~s.dropped).sum(dim=1)
+        if not bool(live.any()):
+            break
+        want += ((live > 0) & (live <= PERSONS)
+                 & (k <= SLOTS)).to(torch.int32)
+        s, lad = ka.ksp_arcs_ladder(st.columns_device, work, s, lad, eps,
+                                    32, 1)
+    assert torch.equal(lad.bursts, want)
+    assert (int(want.sum()) > 0) == (k <= SLOTS)
+    whole = ka.ksp_arcs_ladder(st.columns_device, work, s0, st.ladder, eps,
+                               32, 100_000)[1]
+    assert torch.equal(whole.bursts, want)
+
+
+@pytest.mark.parametrize("entry", ["host", "staged"])
+def test_burst_counter_reads_zero_past_the_burst_width(entry, tmp_path):
+    """Rows of one slot more than the burst holds: a scaled solve marks
+    ``slap.burst_rounds=0,<rounds>``, its answer that of the narrow
+    rows."""
+    cols, vals = square(37, 32, b=2, k=24)
+    wide = pad_slots(cols, vals, SLOTS + 1)
+    sol, names = recorded(
+        tmp_path, lambda: scaled(entry, *wide, 32, eps_of(32)))
+    narrow = scaled(entry, cols, vals, 32, eps_of(32))
+    np.testing.assert_array_equal(sol.person_to_object,
+                                  narrow.person_to_object)
+    np.testing.assert_array_equal(sol.burst_rounds, [0, 0])
+    assert int(narrow.burst_rounds.sum()) > 0
+    assert marked(names, trace.BURST_ROUNDS)[-1] == [
+        0, int(sol.rounds_by_phase.sum())]
+
+
+def test_a_ladder_without_its_burst_counts_is_refused():
+    cols, vals = square(41, 32, b=2, k=24)
+    st = port.stage_batch_sparse_device(cols, vals, 32, eps=eps_of(32),
+                                        device="cpu", scale_eps=True)
+    work = st.work_device
+    bad = st.ladder._replace(bursts=st.ladder.bursts.double())
+    with pytest.raises(ValueError, match="ladder.bursts"):
+        ka.ksp_arcs_ladder(st.columns_device, work, ka.arcs_init(work, 32),
+                           bad, st.eps_val, 32, 10)
 
 
 # ----------------------------------------------------------------------
@@ -294,13 +382,28 @@ def card():
     return torch.device("cuda", 0)
 
 
+#: the card cases: side, slots a row, value type and, where the rows
+#: are to fill their slots, a density.  Rows of 8 and 48 slots, then
+#: two chunks (33), the config A cell's 176, the widest burst and the
+#: first width past it, in both value types.
+CARD_CASES = [
+    (64, 8, torch.float32, None), (200, 48, torch.float64, None),
+    *((n, k, dtype, density)
+      for n, k, density in ((200, 33, 0.15), (300, 176, None),
+                            (256, SLOTS, 0.9),
+                            (256, SLOTS + 1, 0.9))
+      for dtype in (torch.float32, torch.float64))]
+
+
 @pytest.mark.card
-@pytest.mark.parametrize("n,k,dtype", [(64, 8, torch.float32),
-                                       (200, 48, torch.float64),
-                                       (300, 176, torch.float64)])
-def test_ladder_kernel_equals_plain_on_card(card, n, k, dtype):
-    config = dict(CONFIG, density=min(0.3, k / (2 * n)))
-    cols, vals = square(23 + n, n, k=k, config=config, device=card)
+@pytest.mark.parametrize("n,k,dtype,density", CARD_CASES)
+def test_ladder_kernel_equals_plain_on_card(card, n, k, dtype, density):
+    """Whole, stopped and continued; the burst rounds counted as the
+    plain version counts them, some where the rows fit the burst and
+    none past it."""
+    density = density or min(0.3, k / (2 * n))
+    cols, vals = square(23 + n, n, k=k, config=dict(CONFIG, density=density),
+                        device=card)
     if dtype == torch.float32:
         vals = torch.where(cols >= 0, vals.floor(), 0.0)
     eps = 1 / (n + 1) if dtype == torch.float32 else eps_of(n)
@@ -317,6 +420,7 @@ def test_ladder_kernel_equals_plain_on_card(card, n, k, dtype):
         for a, b in zip(got, want):
             for x, y in zip(a, b):
                 assert torch.equal(x, y)
+    assert (int(got[1].bursts.sum()) > 0) == (k <= SLOTS)
     part = ka.ksp_arcs_ladder(st.columns_device, work, s0, st.ladder, eps,
                               n, 50)
     part = ka.ksp_arcs_ladder(st.columns_device, work, *part, eps, n,
