@@ -111,6 +111,7 @@ from .ops.fr_kernel import fr_chunk
 from .ops.ksparse_arcs import (
     Ladder,
     arcs_init,
+    csr_slots,
     distinct_columns,
     ksp_arcs_chunk,
     ksp_arcs_chunk_reference,
@@ -131,6 +132,7 @@ from .ops.stage import stage as _stage  # the FR routes' staging
 from .solution import UNASSIGNED, convert_indices, o2p_from_p2o_device
 from .utils.trace import (
     BURST_ROUNDS,
+    CSR_ARCS_SPAN,
     FINISH_SPAN,
     LAST_PHASE_ROUNDS,
     ROUNDS_BY_PHASE,
@@ -219,6 +221,9 @@ class BatchSolution:
     #: (``ops/ksparse_arcs.py``'s ``Ladder.bursts``), beside
     #: ``rounds_by_phase``
     burst_rounds: Optional[np.ndarray] = None
+    #: [B, M]: the final prices, in the type the rounds ran in, where the
+    #: route reads them back (:func:`solve_csr_scaled`), None elsewhere
+    prices: Optional[np.ndarray] = None
 
     def astype_index(self, index_dtype) -> "BatchSolution":
         """A copy with both assignment arrays in another index width
@@ -496,13 +501,13 @@ def _device_objective(work, p2o, negate: bool) -> torch.Tensor:
 
 def _batch_solution(p2o: torch.Tensor, m: int, objective, eps,
                     nits, rounds_by_phase=None,
-                    burst_rounds=None) -> BatchSolution:
+                    burst_rounds=None, prices=None) -> BatchSolution:
     """The result of a batch solve from its final matching ``p2o [B, N]``
     (int32, on whichever device holds it): object→person and the
     unassigned counts built there (``o2p_from_p2o_device``, which
     rebuilds the map whatever the rounds left in theirs) and read back
-    with the matching in one int32 transfer, C-contiguous views of one
-    host array.  From a card the array is page-locked, from PyTorch's
+    with the matching in one transfer, C-contiguous views of one host
+    array.  From a card the array is page-locked, from PyTorch's
     caching host allocator: a pageable one past glibc's mmap threshold
     (32 MiB where the benchmark pins it; a 256 x 60,000 batch's maps are
     63 MB) is mapped afresh and faulted in page by page on every call.
@@ -514,35 +519,37 @@ def _batch_solution(p2o: torch.Tensor, m: int, objective, eps,
     instead be a function of the host matching, called after the
     readback, where the route picks it from host costs.
     ``rounds_by_phase``, an int32 ``[B, P]`` tensor beside the matching,
-    and ``burst_rounds`` (``[B]``) come back in the same transfer."""
-    b, n = p2o.shape
+    ``burst_rounds`` (``[B]``) and ``prices`` (``[B, M]``, float32 or
+    float64, kept in their type) come back in the same transfer."""
     o2p, num_unassigned = o2p_from_p2o_device(p2o, m)
-    extras = {k: v for k, v in (("rounds_by_phase", rounds_by_phase),
-                                ("burst_rounds", burst_rounds))
-              if v is not None}
-    parts = [p2o.reshape(-1), o2p.reshape(-1), num_unassigned,
-             *(v.reshape(-1).to(torch.int32) for v in extras.values())]
-    packed = torch.cat(parts)
+    # the prices first, so that an 8-byte view of the block is aligned
+    parts = {k: v if k == "prices" else v.to(torch.int32)
+             for k, v in (("prices", prices), ("person_to_object", p2o),
+                          ("object_to_person", o2p),
+                          ("num_unassigned", num_unassigned),
+                          ("rounds_by_phase", rounds_by_phase),
+                          ("burst_rounds", burst_rounds))
+             if v is not None}
+    flat = [v.contiguous().reshape(-1).view(torch.int32)
+            for v in parts.values()]
+    packed = torch.cat(flat)
     host = packed
     if packed.is_cuda:
         host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
         host.copy_(packed)
-    views = np.split(host.numpy(), np.cumsum([x.numel() for x in parts]))
-    p2o = views[0].reshape(b, n)
+    views = np.split(host.numpy(), np.cumsum([x.numel() for x in flat]))
+    views = {k: x.view(_numpy_dtype(v.dtype)).reshape(v.shape)
+             for (k, v), x in zip(parts.items(), views)}
     if callable(objective):
-        objective = objective(p2o)
+        objective = objective(views["person_to_object"])
     objective, eps, nits = (
         x.cpu().numpy() if isinstance(x, torch.Tensor) else x
         for x in (objective, eps, nits))
     return BatchSolution(
-        person_to_object=p2o,
-        object_to_person=views[1].reshape(b, m),
-        num_unassigned=views[2],
         objective=objective,
         eps=eps.astype(np.float64, copy=False),
         nits=nits,
-        **{k: x.reshape(v.shape) for (k, v), x in zip(extras.items(),
-                                                      views[3:])},
+        **views,
     )
 
 
@@ -1381,11 +1388,9 @@ def stage_batch_sparse_device(
     other batch one phase at ``eps``, the route and the result as
     without it."""
     with span(STAGE_SPAN):
-        b, n, k = columns_device.shape
         m = int(num_cols)
-        if n > m:
+        if columns_device.shape[1] > m:
             raise ValueError("num_rows must be <= num_cols")
-        scaled = scale_eps and n == m
         eps_val = float(eps) if eps is not None else 1.0 / m
         used_cols = None
         mp = m
@@ -1406,65 +1411,79 @@ def stage_batch_sparse_device(
             dev = resolve_device(device)
         cols = torch.as_tensor(columns_device).to(dev, torch.int32)
         vals = torch.as_tensor(values_device).to(dev, torch.float32)
-        if scaled:
-            # the ladder runs on the arcs, each column once a row
-            cols = distinct_columns(cols)
-        mask = cols >= 0
-        # the checks and the largest |value| (and a ladder's value
-        # ranges), in one readback
-        checks = torch.stack([
-            ~mask.any(dim=2).all(), cols.max() >= mp,
-            torch.where(mask, vals.abs(), 0.0).amax(),
-        ])
-        if scaled:
-            checks = torch.cat([checks, *_sparse_value_range(mask, vals)])
-        checks = checks.tolist()
-        arcless, out_of_range, absmax = checks[:3]
-        if arcless:
-            raise ValueError("every person needs at least one arc")
-        if out_of_range:
-            raise ValueError(f"column ids must be below num_cols ({m})")
-        plane = work = ladder = None
-        # the precision first: float32 that cannot keep eps in a profit
-        # runs in float64 on the arcs, whatever the plane's width
-        dtype = torch.float32 if resolves(eps_val, absmax) else torch.float64
-        if scaled:
+        return _stage_arcs_device(cols, vals, m, mp, used_cols, maximize,
+                                  eps_val, scale_eps)
+
+
+def _stage_arcs_device(cols, vals, m, mp, used_cols, maximize, eps_val,
+                       scale_eps) -> _SparseStaged:
+    """:func:`stage_batch_sparse_device` from its arcs on their device,
+    ``cols [B, N, K]`` int32 (``mp`` the staged column space, ``m`` the
+    original) and ``vals`` in their own type: float32, or float64 (a
+    ``KhoslaSolver``'s), which runs in float64."""
+    b, n, _ = cols.shape
+    dev = cols.device
+    scaled = scale_eps and n == m
+    if scaled:
+        # the ladder runs on the arcs, each column once a row
+        cols = distinct_columns(cols)
+    mask = cols >= 0
+    # the checks and the largest |value| (and a ladder's value
+    # ranges), in one readback
+    checks = torch.stack([
+        ~mask.any(dim=2).all(), cols.max() >= mp,
+        torch.where(mask, vals.abs(), 0.0).amax(),
+    ])
+    if scaled:
+        checks = torch.cat([checks, *_sparse_value_range(mask, vals)])
+    checks = checks.tolist()
+    arcless, out_of_range, absmax = checks[:3]
+    if arcless:
+        raise ValueError("every person needs at least one arc")
+    if out_of_range:
+        raise ValueError(f"column ids must be below num_cols ({m})")
+    plane = work = ladder = None
+    # the precision first: float32 that cannot keep eps in a profit
+    # runs in float64 on the arcs, whatever the plane's width
+    dtype = (torch.float32 if vals.dtype == torch.float32
+             and resolves(eps_val, absmax) else torch.float64)
+    if scaled:
+        SPARSE_ROUTES["arcs"] += 1
+        work = vals.to(dtype) if maximize else -vals.to(dtype)
+        lo, hi = np.asarray(checks[3:3 + b]), np.asarray(checks[3 + b:])
+        ladder = ladder_init(hi - lo, eps_val, m, dtype, dev)
+        thresholds = ladder.thresholds
+    else:
+        if dtype == torch.float32 and _plane_fits(n, mp):
+            SPARSE_ROUTES["plane"] += 1
+            plane, w_lo, w_hi = _sparse_stage_scatter(cols, vals, mp,
+                                                      not maximize)
+        else:
             SPARSE_ROUTES["arcs"] += 1
             work = vals.to(dtype) if maximize else -vals.to(dtype)
-            lo, hi = np.asarray(checks[3:3 + b]), np.asarray(checks[3 + b:])
-            ladder = ladder_init(hi - lo, eps_val, m, dtype, dev)
-            thresholds = ladder.thresholds
-        else:
-            if dtype == torch.float32 and _plane_fits(n, mp):
-                SPARSE_ROUTES["plane"] += 1
-                plane, w_lo, w_hi = _sparse_stage_scatter(cols, vals, mp,
-                                                          not maximize)
-            else:
-                SPARSE_ROUTES["arcs"] += 1
-                work = vals.to(dtype) if maximize else -vals.to(dtype)
-                w_lo, w_hi = _sparse_value_range(mask, work)
-            # drop-rule factor from the original object count, in float32
-            # on the device as the JAX package computes it (float64 where
-            # the arcs run in float64)
-            thresholds = (m / 2.0) * (
-                w_hi - w_lo + torch.tensor(eps_val, dtype=dtype, device=dev)
-            )
-        return _SparseStaged(
-            values_nm=plane,
-            used_cols=used_cols,
-            thresholds=thresholds,
-            columns=None,
-            arc_mask=None,
-            values64=None,
-            m=m,
-            eps_val=eps_val,
-            device_mode=True,
-            columns_device=cols,
-            values_device=vals,
-            work_device=work,
-            scale_eps=scale_eps,
-            ladder=ladder,
+            w_lo, w_hi = _sparse_value_range(mask, work)
+        # drop-rule factor from the original object count, in float32
+        # on the device as the JAX package computes it (float64 where
+        # the arcs run in float64)
+        thresholds = (m / 2.0) * (
+            w_hi - w_lo + torch.tensor(eps_val, dtype=dtype, device=dev)
         )
+    return _SparseStaged(
+        values_nm=plane,
+        used_cols=used_cols,
+        thresholds=thresholds,
+        columns=None,
+        arc_mask=None,
+        values64=None,
+        m=m,
+        eps_val=eps_val,
+        device_mode=True,
+        columns_device=cols,
+        values_device=vals,
+        work_device=work,
+        scale_eps=scale_eps,
+        ladder=ladder,
+    )
 
 
 def _sparse_stage_dense(
@@ -1599,12 +1618,13 @@ def _arc_objective(columns, arc_mask, values64):
     return objective
 
 
-def _sparse_finish(st: _SparseStaged, ctx: dict,
-                   max_rounds: int) -> BatchSolution:
+def _sparse_finish(st: _SparseStaged, ctx: dict, max_rounds: int,
+                   prices: bool = False) -> BatchSolution:
     """Block on the done check and run (rare) continuation chunks; then,
     on the batch's stream, the device objective where the staging is
     device-resident, local column ids mapped back to the original object
-    space on the device, and :func:`_batch_solution`."""
+    space on the device, and :func:`_batch_solution` (with the final
+    prices where ``prices``)."""
     states, rounds, cur = ctx["states"], ctx["rounds"], ctx["chunk"]
     with _on_stream(ctx["stream"]):
         while True:
@@ -1636,7 +1656,8 @@ def _sparse_finish(st: _SparseStaged, ctx: dict,
             counts = () if ladder is None else (ladder.rounds, ladder.bursts)
             sol = _batch_solution(
                 p2o, st.m, objective, np.full(p2o.shape[0], st.eps_val),
-                states.nits, *counts)
+                states.nits, *counts,
+                prices=states.prices if prices else None)
             if st.scale_eps:
                 _phase_counters(sol)
             return sol
@@ -1663,11 +1684,35 @@ def _phase_counters(sol: BatchSolution) -> None:
 
 
 def _sparse_solve_staged(st: _SparseStaged, max_rounds: int,
-                         chunk: int) -> BatchSolution:
+                         chunk: int, prices: bool = False) -> BatchSolution:
     """Solve a staged problem: one launch and one readback in the common
     case (m >> n instances are done well inside the first chunk)."""
     return _sparse_finish(st, _sparse_dispatch(st, chunk, max_rounds),
-                          max_rounds)
+                          max_rounds, prices)
+
+
+def solve_csr_scaled(j_counts, column_indices, values, eps: float,
+                     max_rounds: int, device=None) -> BatchSolution:
+    """One square instance given as CSR rows (``j_counts [N]``, and
+    ``column_indices``/``values`` in row order; the values those of a
+    maximisation, as a ``KhoslaSolver`` holds them after ``init_solve``)
+    solved by the eps-scaling ladder down to ``eps`` as a batch of one:
+    the rows scattered into arc slots on ``device`` in the values' own
+    type, float32 or float64 (``ksparse_arcs.csr_slots``, in a
+    ``slap.csr_arcs`` span), staged as :func:`stage_batch_sparse_device`
+    stages them (repeated columns cleared, float64 where float32 cannot
+    keep ``eps``), one launch of the ladder kernel (its plain version on
+    the CPU) with the batched route's continuation, never past
+    ``max_rounds``; the batch's result, with its final prices."""
+    n = len(j_counts)
+    with span(CSR_ARCS_SPAN):
+        columns, vals = csr_slots(j_counts, column_indices, values,
+                                  resolve_device(device))
+    with span(STAGE_SPAN):
+        st = _stage_arcs_device(columns, vals, n, n, None, True, float(eps),
+                                True)
+    return _sparse_solve_staged(st, max_rounds, _SPARSE_LADDER_BUDGET,
+                                prices=True)
 
 
 def _sparse_host_problem(columns, values, num_cols, maximize, eps):

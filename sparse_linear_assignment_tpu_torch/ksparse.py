@@ -31,6 +31,7 @@ from typing import Optional
 
 import numpy as np
 
+from .batch import solve_csr_scaled
 from .cpu_reference import get_lib, khosla_solve_cpu
 from .device import resolve_device
 from .ops.auction import khosla_solve
@@ -39,6 +40,7 @@ from .ops.compact import fresh_lstate, khosla_solve_compact, \
 from .ops.padded import staged_problem
 from .solution import UNASSIGNED, AuctionSolution
 from .solver import AuctionSolver
+from .utils.trace import SOLVE_SPAN, span
 
 
 def _csr_starts(counts) -> np.ndarray:
@@ -91,7 +93,16 @@ class KhoslaSolver(AuctionSolver):
           when ``scale_eps``, ``compact``, ``hybrid`` or
           ``start_prices`` is given (they parameterise them);
         - ``"native"``: the native engine;
-        - ``"device"``: the device engines.
+        - ``"device"``: the device engines.  On a card, a square
+          instance solved with ``scale_eps`` from a cold start (no
+          ``start_prices``, no ``hybrid``) runs the eps-scaling ladder
+          on the arc ladder kernel as a batch of one
+          (``batch.solve_csr_scaled``: the rules of
+          ``ops/compact.khosla_solve_scaled``, the same certificate), in
+          float64 unless the solver's dtype is float32 and float32 keeps
+          ``eps``; ``max_rounds`` then counts the rounds of every phase
+          together.  Every other device solve, and every solve on the
+          CPU, runs the slot-list, whole-instance or hybrid rounds below.
 
         A native engine that does not build raises; no route switches
         engines.  ``device`` (``None`` means ``"cuda"``, which raises
@@ -117,6 +128,12 @@ class KhoslaSolver(AuctionSolver):
           asymmetric ones stale prices on unused objects break the
           n-eps bound, so they are ignored with a warning (the reason
           the reference disables eps-scaling there)."""
+        with span(SOLVE_SPAN):
+            self._solve(solution, maximize, eps, max_rounds, scale_eps,
+                        compact, hybrid, start_prices, engine, device)
+
+    def _solve(self, solution, maximize, eps, max_rounds, scale_eps,
+               compact, hybrid, start_prices, engine, device) -> None:
         if engine not in ("auto", "native", "device"):
             raise ValueError(f"unknown engine {engine!r}")
         forced_device = (
@@ -146,6 +163,13 @@ class KhoslaSolver(AuctionSolver):
         num_cols_f = float(self.num_cols)
         eps = float(eps) if eps is not None else 1.0 / num_cols_f
         solution.eps = eps
+
+        if (scale_eps and not hybrid and start_prices is None
+                and self.num_rows == self.num_cols
+                and dev.type == "cuda"
+                and self.dtype in (np.float32, np.float64)):
+            self._solve_arc_ladder(solution, eps, max_rounds, dev)
+            return
 
         values = self.values  # sign-flipped by init_solve where needed
         w_min = float(values.min())
@@ -236,6 +260,22 @@ class KhoslaSolver(AuctionSolver):
         solution.object_to_person = o2p.cpu().numpy()
         solution.num_unassigned = int((p2o == UNASSIGNED).sum())
         self.nits = nits
+
+    def _solve_arc_ladder(self, solution: AuctionSolution, eps: float,
+                          max_rounds: int, device) -> None:
+        """The eps-scaling ladder on the arc ladder kernel, this instance
+        a batch of one, after ``init_solve`` (the values sign-adjusted
+        to a maximisation)."""
+        # the storage itself, not the read-only views: a tensor made
+        # from a read-only array warns, and nothing here writes to it
+        sol = solve_csr_scaled(
+            self._jc[: self._nrows_built], self._cols[: self._narcs],
+            self._vals[: self._narcs], eps, max_rounds, device=device)
+        self.prices = sol.prices[0].astype(np.float64, copy=False)
+        solution.person_to_object = sol.person_to_object[0]
+        solution.object_to_person = sol.object_to_person[0]
+        solution.num_unassigned = int(sol.num_unassigned[0])
+        self.nits = int(sol.nits[0])
 
     def _solve_native_ladder(
         self,

@@ -455,6 +455,37 @@ def ladder_init(spans, eps_target: float, m: int, dtype,
     )
 
 
+#: the slots a row of arcs staged from CSR rows (:func:`csr_slots`) are
+#: a multiple of this: a warp's chunk of the kernel's row walk
+CSR_SLOT_ALIGN = 32
+
+
+def csr_slots(j_counts, column_indices, values, device) -> tuple:
+    """One instance's CSR rows (``j_counts [N]`` arcs a row,
+    ``column_indices``/``values`` all rows' arcs in row order) as arcs
+    ``(columns [1, N, K] int32, values [1, N, K])`` on ``device``, the
+    values in their own type: row r's arcs in its first slots, in their
+    CSR order, then ``-1`` pads (value 0).  K is the longest row rounded
+    up to :data:`CSR_SLOT_ALIGN`.  The three arrays are copied to the
+    device once, as they are, and scattered into the slots there."""
+    counts = np.asarray(j_counts, dtype=np.int64)
+    n, narcs = counts.shape[0], int(counts.sum())
+    k = -(-int(counts.max()) // CSR_SLOT_ALIGN) * CSR_SLOT_ALIGN
+    counts_d = torch.from_numpy(counts).to(device)
+    cols = torch.from_numpy(
+        np.asarray(column_indices, dtype=np.int32)).to(device)
+    vals = torch.from_numpy(np.asarray(values)).to(device)
+    row = torch.repeat_interleave(
+        torch.arange(n, device=device), counts_d, output_size=narcs)
+    starts = torch.cumsum(counts_d, 0) - counts_d
+    at = row * k + torch.arange(narcs, device=device) - starts[row]
+    out_cols = torch.full((n * k,), -1, dtype=torch.int32, device=device)
+    out_vals = torch.zeros(n * k, dtype=vals.dtype, device=device)
+    out_cols[at] = cols
+    out_vals[at] = vals
+    return out_cols.view(1, n, k), out_vals.view(1, n, k)
+
+
 def distinct_columns(columns: torch.Tensor) -> torch.Tensor:
     """``columns`` with every slot whose column a later slot of its row
     repeats set to ``-1``: the same arcs as the plane keeps them (a

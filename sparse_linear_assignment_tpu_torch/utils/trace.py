@@ -24,7 +24,12 @@ WAIT_SPAN = "slap.wait"  # a solver driver's blocking progress readback
 FINISH_SPAN = "slap.finish"  # a batch solve after its driver
 INVERT_SPAN = "slap.invert"  # ``solution``'s two inversions
 STAGE_SPAN = "slap.stage"  # the sparse entry points' staging
-SPANS = (SOLVE_BATCH_SPAN, WAIT_SPAN, FINISH_SPAN, INVERT_SPAN, STAGE_SPAN)
+SOLVE_SPAN = "slap.solve"  # the whole of ``KhoslaSolver.solve``
+#: a solver's CSR rows turned into arc slots on the device, the copy
+#: included (``KhoslaSolver.solve``'s arc ladder route)
+CSR_ARCS_SPAN = "slap.csr_arcs"
+SPANS = (SOLVE_BATCH_SPAN, WAIT_SPAN, FINISH_SPAN, INVERT_SPAN, STAGE_SPAN,
+         SOLVE_SPAN, CSR_ARCS_SPAN)
 
 #: the program's counters (:func:`counter`), each marked once a batch
 #: that runs an eps-scaling ladder: the largest number of rounds of an
