@@ -1424,23 +1424,77 @@ def padded_scipy_objective(cols, vals, m):
     return float(np.asarray(mat[rows, picked]).sum())
 
 
-def ladders_differ(a, b):
-    """The fields in which two ``(states, ladder)`` results differ."""
+def ladders_differ(a, b, skip=()):
+    """The fields in which two ``(states, ladder)`` results differ, the
+    ladder's fields ``skip`` left out."""
     return (arcs_states_differ(a[0], b[0])
-            + [k for k in a[1]._fields
-               if not torch.equal(getattr(a[1], k), getattr(b[1], k))])
+            + [k for k in a[1]._fields if k not in skip
+               and not torch.equal(getattr(a[1], k), getattr(b[1], k))])
+
+
+def ladder_rows(ka, c, w, lad, at):
+    """Rows ``at`` of a batch's arcs and ladder."""
+    return (c[at].contiguous(), w[at].contiguous(),
+            ka.Ladder(*(x[at].contiguous() for x in lad)))
+
+
+def ladder_at_phase(ka, c, w, lad, eps, n, rbp, k):
+    """Each instance of a batch run alone through its first ``k`` phases
+    (``rbp``, its rounds by phase), then the batch put back together:
+    ``(states, ladder)`` at the first round of each one's phase ``k``."""
+    parts = []
+    for i in range(c.shape[0]):
+        ci, wi, li = ladder_rows(ka, c, w, lad, slice(i, i + 1))
+        parts.append(ka.ksp_arcs_ladder(ci, wi, ka.arcs_init(wi, n), li,
+                                        eps, n, int(rbp[i, :k].sum())))
+    states = type(parts[0][0])(*(torch.cat(f) for f in zip(
+        *(p[0] for p in parts))))
+    return states, ka.Ladder(*(torch.cat(f) for f in zip(
+        *(p[1] for p in parts))))
+
+
+def lone_free_ms(ka, c, w, state, eps, n, rounds):
+    """The chain's instance against the one without it, both timed in
+    turns (without, with, with, without; CUDA events, each the median of
+    3) over a launch from ``state`` whose rounds list more than one
+    person: ``rounds`` halved until the launch runs no round of the lone
+    chain.  Returns ``(rounds, without ms, with ms)``; both launches'
+    results bit-equal but for ``lones``."""
+    s, lad = state
+    while True:
+        got = ka.ksp_arcs_ladder(c, w, s, lad, eps, n, rounds)
+        if torch.equal(got[1].lones, lad.lones) or rounds == 1:
+            break
+        rounds //= 2
+    assert torch.equal(got[1].lones, lad.lones), "a lone round in the launch"
+
+    def run(chain):
+        return lambda: ka._ksp_arcs_ladder_cuda(c, w, s, lad, eps, n, rounds,
+                                                chain=chain)
+
+    old = ka._ksp_arcs_ladder_cuda(c, w, s, lad, eps, n, rounds, chain=False)
+    bad = ladders_differ(old, got)
+    assert not bad, ("the chain's rounds without a lone round", bad)
+    times = [event_ms(run(chain)) for chain in (False, True, True, False)]
+    return rounds, (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
 
 
 def phase_ksp_ladder(port, batch, ka):
     """The ladder kernel bit-equal to its plain version on small square
     batches in both value types (rows of 8 to 176 slots, and rows one
-    slot wider than the burst, whose rounds never bid in one), whole,
-    stopped and continued, burst rounds included; one batch of the
+    slot wider than the burst, whose rounds never bid in one and run no
+    lone chain), whole, stopped and continued, burst and lone rounds
+    included, and to its instance without the lone chain (the rounds as
+    they were before it) but for the lone count; one batch of the
     config A cell (128 instances of 10,000², about 101 arcs a person in
     176 slots, eps = 2^-15 / 10,001) staged with ``scale_eps`` and solved
-    through the stream: its launches, the share of its rounds that bid
-    in one burst, the kernel's time on the batch beside its bound and
-    its time before the burst, rounds by phase; the batch's quickest,
+    through the stream: its launches, the shares of its rounds that bid
+    in one burst and that the lone chain runs, the kernel's time on the
+    batch beside its bound, its time before the burst and its instance
+    without the chain timed in turns with it (bit-equal), and both
+    instances over rounds that list more than one person, from the
+    initial state and from each instance's third phase's end, rounds by
+    phase; the batch's quickest,
     median and slowest instances, as the kernel's one launch over the
     whole batch left them, bit-equal to the plain version run on those
     three alone (both timed on those three), and scipy's optimum on each
@@ -1479,12 +1533,18 @@ def phase_ksp_ladder(port, batch, ka):
             part = ka.ksp_arcs_ladder(c, w, *part, eps, n, rounds)
             whole = ka.ksp_arcs_ladder(c, w, s0, st.ladder, eps, n,
                                        rounds + 5)
-            bad = ladders_differ(got, want) + ladders_differ(part, whole)
+            old = ka._ksp_arcs_ladder_cuda(c, w, s0, st.ladder, eps, n,
+                                           rounds, chain=False)
+            bad = (ladders_differ(got, want) + ladders_differ(part, whole)
+                   + ladders_differ(old, got, skip=("lones",)))
             assert not bad, ("ladder kernel, small case", seed, rounds, bad)
+            assert torch.equal(old[1].lones, st.ladder.lones)
             small += 1
         assert not bool(ksp_active(got[0]).any()), "a small ladder undone"
         wide = k > ka.burst_rule()[1]
         assert (int(got[1].bursts.sum()) == 0) == wide, ("bursts", seed, k)
+        assert (int(got[1].lones.sum()) == 0) == wide, ("lones", seed, k)
+        assert bool((got[1].lones <= got[1].bursts).all()) or wide
 
     # the cell's batch, through the entry points
     spec = cell.spec
@@ -1507,10 +1567,30 @@ def phase_ksp_ladder(port, batch, ka):
     c, w = st.columns_device, st.work_device
     budget = batch._SPARSE_LADDER_BUDGET
     s0 = ka.arcs_init(w, n)
-    kernel_ms = event_ms(lambda: ka.ksp_arcs_ladder(
-        c, w, s0, st.ladder, CONFIG_A_EPS, n, budget), reps=3)
+    def whole(chain):
+        return lambda: ka._ksp_arcs_ladder_cuda(
+            c, w, s0, st.ladder, CONFIG_A_EPS, n, budget, chain=chain)
+
+    # the instance without the lone chain and the shipped one, in turns
+    turns = [event_ms(whole(chain), reps=3)
+             for chain in (False, True, True, False)]
+    kernel_ms = (turns[1] + turns[2]) / 2
+    no_chain_ms = (turns[0] + turns[3]) / 2
     got = ka.ksp_arcs_ladder(c, w, s0, st.ladder, CONFIG_A_EPS, n, budget)
+    bad = ladders_differ(whole(False)(), got, skip=("lones",))
+    assert not bad, ("the ladder without the chain at config A", bad)
     assert np.array_equal(got[0].p2o.cpu().numpy(), sol.person_to_object)
+    assert bool((got[1].lones <= got[1].bursts).all())
+    assert np.array_equal(got[1].lones.cpu().numpy(), sol.lone_rounds)
+    # both instances over rounds that list more than one person: from the
+    # initial state, and from the end of each instance's third phase
+    rbp = sol.rounds_by_phase
+    opening = lone_free_ms(ka, c, w, (s0, st.ladder), CONFIG_A_EPS, n,
+                           int(rbp[:, 0].min()))
+    third = lone_free_ms(
+        ka, c, w, ladder_at_phase(ka, c, w, st.ladder, CONFIG_A_EPS, n,
+                                  rbp, 3),
+        CONFIG_A_EPS, n, int(rbp[:, 3].min()))
     # the arcs as stored read once (int32 columns, float64 values), p2o,
     # dropped, the prices and nits written once
     bytes_once = b * n * k * 12 + b * n * (4 + 1 + 8) + b * 4
@@ -1520,8 +1600,7 @@ def phase_ksp_ladder(port, batch, ka):
     order = np.argsort(sol.nits, kind="stable")
     picks = [int(order[0]), int(order[len(order) // 2]), int(order[-1])]
     at = torch.tensor(picks, device="cuda")
-    c3, w3 = c[at].contiguous(), w[at].contiguous()
-    lad3 = ka.Ladder(*(x[at].contiguous() for x in st.ladder))
+    c3, w3, lad3 = ladder_rows(ka, c, w, st.ladder, at)
     s3 = ka.arcs_init(w3, n)
     plain_ms, want = sync_ms(lambda: ka.ksp_arcs_ladder_reference(
         c3, w3, s3, lad3, CONFIG_A_EPS, n, budget))
@@ -1536,7 +1615,6 @@ def phase_ksp_ladder(port, batch, ka):
     for i in picks:
         assert sol.objective[i] == padded_scipy_objective(
             c_host[i], v_host[i], n), ("config A optimum", i)
-    rbp = sol.rounds_by_phase
     ptxas = {name: row for name, row in _build.ptxas_table(
         _build.BUILD_LOG.get("ksp_arcs_kernel", "")).items()
         if "ksp_arcs_rounds_kernel" in name
@@ -1551,6 +1629,14 @@ def phase_ksp_ladder(port, batch, ka):
           "burst_round_share_pct": 100.0 * float(sol.burst_rounds.sum())
           / float(sol.nits.sum()),
           "burst_rounds": [int(sol.burst_rounds[i]) for i in picks],
+          "lone_round_share_pct": 100.0 * float(sol.lone_rounds.sum())
+          / float(sol.nits.sum()),
+          "lone_rounds": [int(sol.lone_rounds[i]) for i in picks],
+          "ms_without_chain": no_chain_ms, "ms_turns": turns,
+          "multi_rounds_opening": dict(zip(
+              ("rounds", "ms_without_chain", "ms"), opening)),
+          "multi_rounds_phase3": dict(zip(
+              ("rounds", "ms_without_chain", "ms"), third)),
           "ptxas": ptxas,
           "bound_ms": bound_ms, "bound_by": "bytes",
           "roofline_pct": 100.0 * bound_ms / kernel_ms,

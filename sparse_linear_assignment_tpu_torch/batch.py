@@ -135,6 +135,7 @@ from .utils.trace import (
     CSR_ARCS_SPAN,
     FINISH_SPAN,
     LAST_PHASE_ROUNDS,
+    LONE_ROUNDS,
     ROUNDS_BY_PHASE,
     SOLVE_BATCH_SPAN,
     STAGE_SPAN,
@@ -221,6 +222,9 @@ class BatchSolution:
     #: (``ops/ksparse_arcs.py``'s ``Ladder.bursts``), beside
     #: ``rounds_by_phase``
     burst_rounds: Optional[np.ndarray] = None
+    #: int32 [B]: the ladder's rounds of its lone chain, one person listed
+    #: (``Ladder.lones``), beside ``rounds_by_phase``
+    lone_rounds: Optional[np.ndarray] = None
     #: [B, M]: the final prices, in the type the rounds ran in, where the
     #: route reads them back (:func:`solve_csr_scaled`), None elsewhere
     prices: Optional[np.ndarray] = None
@@ -501,7 +505,8 @@ def _device_objective(work, p2o, negate: bool) -> torch.Tensor:
 
 def _batch_solution(p2o: torch.Tensor, m: int, objective, eps,
                     nits, rounds_by_phase=None,
-                    burst_rounds=None, prices=None) -> BatchSolution:
+                    burst_rounds=None, lone_rounds=None,
+                    prices=None) -> BatchSolution:
     """The result of a batch solve from its final matching ``p2o [B, N]``
     (int32, on whichever device holds it): object→person and the
     unassigned counts built there (``o2p_from_p2o_device``, which
@@ -519,8 +524,9 @@ def _batch_solution(p2o: torch.Tensor, m: int, objective, eps,
     instead be a function of the host matching, called after the
     readback, where the route picks it from host costs.
     ``rounds_by_phase``, an int32 ``[B, P]`` tensor beside the matching,
-    ``burst_rounds`` (``[B]``) and ``prices`` (``[B, M]``, float32 or
-    float64, kept in their type) come back in the same transfer."""
+    ``burst_rounds`` and ``lone_rounds`` (``[B]`` each) and ``prices``
+    (``[B, M]``, float32 or float64, kept in their type) come back in the
+    same transfer."""
     o2p, num_unassigned = o2p_from_p2o_device(p2o, m)
     # the prices first, so that an 8-byte view of the block is aligned
     parts = {k: v if k == "prices" else v.to(torch.int32)
@@ -528,7 +534,8 @@ def _batch_solution(p2o: torch.Tensor, m: int, objective, eps,
                           ("object_to_person", o2p),
                           ("num_unassigned", num_unassigned),
                           ("rounds_by_phase", rounds_by_phase),
-                          ("burst_rounds", burst_rounds))
+                          ("burst_rounds", burst_rounds),
+                          ("lone_rounds", lone_rounds))
              if v is not None}
     flat = [v.contiguous().reshape(-1).view(torch.int32)
             for v in parts.values()]
@@ -1653,7 +1660,8 @@ def _sparse_finish(st: _SparseStaged, ctx: dict, max_rounds: int,
                     UNASSIGNED,
                 ).to(torch.int32)
             ladder = ctx["ladder"]["at"]
-            counts = () if ladder is None else (ladder.rounds, ladder.bursts)
+            counts = () if ladder is None else (
+                ladder.rounds, ladder.bursts, ladder.lones)
             sol = _batch_solution(
                 p2o, st.m, objective, np.full(p2o.shape[0], st.eps_val),
                 states.nits, *counts,
@@ -1664,12 +1672,13 @@ def _sparse_finish(st: _SparseStaged, ctx: dict, max_rounds: int,
 
 
 def _phase_counters(sol: BatchSolution) -> None:
-    """A scaled solve's rounds by phase and its burst rounds: one phase
-    and none where no ladder ran (a rectangular batch); the program's
-    counters of them."""
+    """A scaled solve's rounds by phase, its burst rounds and its lone
+    rounds: one phase and none where no ladder ran (a rectangular batch);
+    the program's counters of them."""
     if sol.rounds_by_phase is None:
         sol.rounds_by_phase = sol.nits.reshape(-1, 1)
         sol.burst_rounds = np.zeros_like(sol.nits)
+        sol.lone_rounds = np.zeros_like(sol.nits)
     rbp = sol.rounds_by_phase
 
     def last():
@@ -1681,6 +1690,7 @@ def _phase_counters(sol: BatchSolution) -> None:
     counter(LAST_PHASE_ROUNDS, last)
     counter(ROUNDS_BY_PHASE, lambda: rbp.max(axis=0))
     counter(BURST_ROUNDS, lambda: (sol.burst_rounds.sum(), rbp.sum()))
+    counter(LONE_ROUNDS, lambda: (sol.lone_rounds.sum(), rbp.sum()))
 
 
 def _sparse_solve_staged(st: _SparseStaged, max_rounds: int,

@@ -97,6 +97,25 @@
 // folds its slots in B's order and the warp merge and the post are B's
 // (post_bid), so the result is bit-equal.  Every other round takes B.  The
 // ladder counts, by thread 0, the rounds that took the burst (`bursts`).
+//
+// The lone chain (the ladder's one-bidder rounds).  Once a ladder phase
+// lists one person it never lists more: the lone bidder either drops, or
+// has no arc and stays listed, or bids, wins its object (no other bid
+// meets it) and displaces at most the object's owner, the next round's one
+// listed person.  So each phase ends in a chain of such rounds, more than
+// half of a config A instance's rounds.  Where rows fit the burst
+// (lone_round), run_rounds returns as soon as a round leaves one person
+// listed, and warp 0 runs the chain (lone_chain) while the other warps wait
+// at one barrier: a round loads the row as B' does, gathers each slot's
+// price and the owner word of its object's resting key (~owner, 0 for a
+// free object) beside it, folds and merges as B' does, and lane 0 applies
+// post_bid's and C's arithmetic with no atomic and no barrier: the drop
+// test, or the object's price (C's Arith<T>::price of the bid's key), its
+// key resting at the bidder, the bidder's p2o and the owner's.  The owner's
+// row load is issued before those stores.  The ladder counts these rounds
+// (`lones`) in nits, its rounds by phase and its bursts as before.  A
+// kernel instance without the chain (kLone false, the rounds as they were
+// before it) is kept for measurements only.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -126,6 +145,12 @@ static_assert(kBurstPersons == kThreads / 32, "one listed person a warp");
 // bids in one burst
 __device__ __forceinline__ bool burst_round(int nact, int K) {
   return nact <= kBurstPersons && K <= 32 * kBurstChunks;
+}
+
+// whether a ladder round of `nact` listed persons over rows of K slots
+// belongs to the lone chain
+__device__ __forceinline__ bool lone_round(int nact, int K) {
+  return nact == 1 && K <= 32 * kBurstChunks;
 }
 
 // phase counters, as csrc/ksp_kernel.cu counts them (ops/ksparse_kernel.py:
@@ -302,6 +327,46 @@ __device__ __forceinline__ int first_list(const Instance<T>& in, int* cnt,
   return cnt[0];
 }
 
+// A lane's slots of `person`'s row in a burst of C chunks, slot 32 c + lane
+// in chunk c (column -1 and value 0 past K), every load issued before any
+// is used.
+template <typename T, int C>
+__device__ __forceinline__ void burst_row(const int32_t* cols, const T* vals,
+                                          int person, int K, int lane,
+                                          int (&col)[C], T (&val)[C]) {
+  const size_t row = static_cast<size_t>(person) * K;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int s = c * 32 + lane;
+    col[c] = -1;
+    val[c] = T(0);
+    if (s < K) {
+      col[c] = __ldg(cols + row + s);
+      val[c] = __ldg(vals + row + s);
+    }
+  }
+}
+
+// A burst row's top-2 over the warp: each lane folds its slots in slot
+// order, then the warp merges.
+template <typename T, int C>
+__device__ __forceinline__ void burst_top2(const int (&col)[C],
+                                           const T (&val)[C],
+                                           const T (&price)[C], T& best,
+                                           T& second, int& arg,
+                                           T& best_val) {
+  best = second = Arith<T>::neg_inf();
+  best_val = T(0);
+  arg = kUnassigned;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (col[c] >= 0)
+      top2_take_col(val[c] - price[c], val[c], col[c], best, second, arg,
+                    best_val);
+  }
+  top2_merge(best, second, arg, best_val);
+}
+
 // One lane's post of listed person `mi` (list slot `mk`) from its merged
 // top-2 (best `mb` at column `ma`, whose value is `mv`; second `ms`): the
 // drop test, or the bid's atomicMax on its object, the one bid that finds
@@ -347,11 +412,13 @@ __device__ __forceinline__ void post_bid(const Instance<T>& in, T thr, T eps,
 // list (nact 0: no person is active).  kDistinct: every row lists a column
 // once, and the repeat test is left out; a round that burst_round admits
 // then bids in one burst (B'), the ladder's few-bidder rounds, which the
-// rounds kernel's code never holds.  `lap(slot)` closes a profiling
-// interval, `start(nact)` sees a round begin and `end(ran, nact)` end; the
-// ladder passes empty ones, which compile away.
-template <typename T, bool kDistinct, typename Lap, typename Start,
-          typename End>
+// rounds kernel's code never holds.  kLone (the ladder's): return as soon
+// as a round leaves the lone chain's one person listed (lone_round).
+// `lap(slot)` closes a profiling interval, `start(nact)` sees a round
+// begin and `end(ran, nact)` end; the ladder passes empty ones, which
+// compile away.
+template <typename T, bool kDistinct, bool kLone, typename Lap,
+          typename Start, typename End>
 __device__ __forceinline__ int run_rounds(const Instance<T>& in, int* cnt,
                                           T thr, T eps, int N, int K,
                                           int rounds, int& nact, int& cur,
@@ -378,32 +445,16 @@ __device__ __forceinline__ int run_rounds(const Instance<T>& in, int* cnt,
       // price gathers, before it folds any into its top-2 (in slot order)
       if (warp < nact) {
         const int person = list[warp];
-        const size_t row = static_cast<size_t>(person) * K;
         int col[kBurstChunks];
         T val[kBurstChunks];
-#pragma unroll
-        for (int c = 0; c < kBurstChunks; ++c) {
-          const int s = c * 32 + lane;
-          col[c] = -1;
-          val[c] = T(0);
-          if (s < K) {
-            col[c] = __ldg(in.cols + row + s);
-            val[c] = __ldg(in.vals + row + s);
-          }
-        }
+        burst_row(in.cols, in.vals, person, K, lane, col, val);
         T price[kBurstChunks];
 #pragma unroll
         for (int c = 0; c < kBurstChunks; ++c)
           price[c] = col[c] >= 0 ? __ldcg(in.prices + col[c]) : T(0);
-        T best = ninf, second = ninf, best_val = T(0);
-        int arg = kUnassigned;
-#pragma unroll
-        for (int c = 0; c < kBurstChunks; ++c) {
-          if (col[c] >= 0)
-            top2_take_col(val[c] - price[c], val[c], col[c], best, second,
-                          arg, best_val);
-        }
-        top2_merge(best, second, arg, best_val);
+        T best, second, best_val;
+        int arg;
+        burst_top2(col, val, price, best, second, arg, best_val);
         if (lane == 0)
           post_bid(in, thr, eps, person, warp, best, second, arg, best_val,
                    next, next_cnt);
@@ -548,8 +599,88 @@ __device__ __forceinline__ int run_rounds(const Instance<T>& in, int* cnt,
     cur ^= 1;
     end(ran, nact);
     if (nact == 0) break;  // no person is active; uniform over the CTA
+    if constexpr (kLone) {
+      if (lone_round(nact, K)) break;  // the chain's; uniform too
+    }
   }
   return ran;
+}
+
+// The lone chain from `person`, the one listed person of a ladder round
+// over rows that fit the burst (lone_round), run by one warp for up to
+// `rounds` rounds at one eps and one drop threshold (see the note at the
+// top), over rows of at most 32 C slots.  Lane 0 leaves the rounds run in
+// out[0] and the persons then listed (0 or 1) in out[1].  Inlined: a call
+// would save the ladder's live registers around it, and the float64
+// ladder would spill more than without the chain.
+template <typename T, int C>
+__device__ __forceinline__ void lone_chain(const int32_t* cols, const T* vals,
+                                        T* prices, unsigned long long* keys,
+                                        int32_t* p2o, unsigned char* drop,
+                                        T thr, T eps, int K, int person,
+                                        int rounds, int* out) {
+  const int lane = threadIdx.x & 31;
+  // the low words of the objects' keys: a resting key's owner word
+  const uint32_t* owner_word = reinterpret_cast<const uint32_t*>(keys);
+  int col[C];
+  T val[C];
+  burst_row(cols, vals, person, K, lane, col, val);
+  int ran = 0, listed = 1;
+  while (true) {
+    T price[C];
+    uint32_t word[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      price[c] = T(0);
+      word[c] = 0u;
+      if (col[c] >= 0) {
+        price[c] = __ldcg(prices + col[c]);
+        word[c] = __ldcg(owner_word + 2 * static_cast<size_t>(col[c]));
+      }
+    }
+    T best, second, best_val;
+    int arg;
+    burst_top2(col, val, price, best, second, arg, best_val);
+    ++ran;
+    if (arg == kUnassigned) {  // no arc: listed to the end of the budget
+      ran = rounds;
+      break;
+    }
+    const T price_at_best = best_val - best;
+    if (price_at_best > thr) {
+      if (lane == 0) drop[person] = 1;
+      listed = 0;
+      break;
+    }
+    const T bid =
+        (second != Arith<T>::neg_inf() ? best_val - second : price_at_best) +
+        eps;
+    // the best object's owner word, from the one lane whose slot holds it
+    uint32_t w = 0u;
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (col[c] == arg) w = word[c];
+    w = __reduce_or_sync(kFull, w);
+    const int32_t next = w != 0u ? key_bidder(w) : -1;
+    const bool more = next >= 0 && ran < rounds;
+    if (more) burst_row(cols, vals, next, K, lane, col, val);
+    if (lane == 0) {
+      __stcg(prices + arg, Arith<T>::price(Arith<T>::key(bid, person)));
+      __stcg(keys + arg, rest_key(person));
+      p2o[person] = arg;
+      if (next >= 0) p2o[next] = kUnassigned;
+    }
+    if (!more) {
+      listed = next >= 0;
+      break;
+    }
+    person = next;
+    __syncwarp();  // lane 0's stores before the next round's gathers
+  }
+  if (lane == 0) {
+    out[0] = ran;
+    out[1] = listed;
+  }
 }
 
 // kTrace: the round log is written (`trace` not null).  The production
@@ -596,7 +727,7 @@ ksp_arcs_rounds_kernel(const int32_t* __restrict__ cols,
   long long rows_read = 0;
   if (nact > 0) {
     int cur = 0;
-    ran = run_rounds<T, false>(
+    ran = run_rounds<T, false, false>(
         in, cnt, thresholds[b], eps, N, K, rounds, nact, cur, lap,
         [&](int active) { rows_read += active; },
         [&](int done, int active) {
@@ -683,13 +814,15 @@ __device__ __forceinline__ T block_max_price(const T* prices, int M,
 // once to T, the matching and the drops are reset and every person is
 // listed; prices stay.  The state between launches is p2o, dropped, prices,
 // nits and the ladder's `steps`, `thresholds` and `phase` (updated in
-// place); `phase_rounds [B, P]` gains each phase's rounds and `bursts [B]`
-// the rounds that bid in one burst (burst_round).  A launch ends an
-// instance's rounds after `rounds` of them (a phase that ends in the last
-// one still hands over to the next), so a later launch continues.  The
-// columns of a row are distinct (the staging clears a repeated column's
-// earlier slots), so the rounds leave the repeat test out.
-template <typename T>
+// place); `phase_rounds [B, P]` gains each phase's rounds, `bursts [B]`
+// the rounds that bid in one burst (burst_round) and, with kLone, `lones
+// [B]` the rounds of the lone chain (lone_round; untouched without it).  A
+// launch ends an instance's rounds after `rounds` of them (a phase that
+// ends in the last one still hands over to the next), so a later launch
+// continues, in a chain too.  The columns of a row are distinct (the
+// staging clears a repeated column's earlier slots), so the rounds leave
+// the repeat test out.
+template <typename T, bool kLone>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 ksp_arcs_ladder_kernel(const int32_t* __restrict__ cols,
                        const T* __restrict__ vals, T* prices,
@@ -699,12 +832,14 @@ ksp_arcs_ladder_kernel(const int32_t* __restrict__ cols,
                        int32_t* scratch, const double* __restrict__ spans,
                        double* steps, int32_t* phase,
                        int32_t* __restrict__ phase_rounds,
-                       int32_t* __restrict__ bursts, int P, double target,
+                       int32_t* __restrict__ bursts,
+                       int32_t* __restrict__ lones, int P, double target,
                        double half_m, int N, int M, int K, int rounds) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   __shared__ int cnt[2];
   __shared__ T red[kThreads / 32];
+  __shared__ int chain[2];  // lone_chain's rounds run and persons listed
   const Instance<T> in = instance_at(b, cols, vals, prices, keys, winner,
                                      p2o, dropped, scratch, N, M, K);
   if (tid < 2) cnt[tid] = 0;
@@ -713,14 +848,35 @@ ksp_arcs_ladder_kernel(const int32_t* __restrict__ cols,
   double step = steps[b];
   T thr = thresholds[b];
   int ph = phase[b];
-  int left = rounds, ran = 0, cur = 0, burst = 0;
+  int left = rounds, ran = 0, cur = 0, burst = 0, lone = 0;
   while (true) {
     if (nact > 0 && left > 0) {
       const T eps = static_cast<T>(step > target ? step : target);
-      const int r = run_rounds<T, true>(
-          in, cnt, thr, eps, N, K, left, nact, cur, [](int) {},
-          [&](int active) { burst += burst_round(active, K); },
-          [](int, int) {});
+      int r = 0;
+      if (!(kLone && lone_round(nact, K)))
+        r = run_rounds<T, true, kLone>(
+            in, cnt, thr, eps, N, K, left, nact, cur, [](int) {},
+            [&](int active) { burst += burst_round(active, K); },
+            [](int, int) {});
+      if constexpr (kLone) {
+        if (lone_round(nact, K) && r < left) {
+          // rows of at most six chunks (config A's) keep one chunk's
+          // registers free
+          if (tid < 32 && K <= 32 * (kBurstChunks - 1))
+            lone_chain<T, kBurstChunks - 1>(
+                in.cols, in.vals, in.prices, in.keys, in.p2o, in.drop, thr,
+                eps, K, in.lists[cur * N], left - r, chain);
+          else if (tid < 32)
+            lone_chain<T, kBurstChunks>(
+                in.cols, in.vals, in.prices, in.keys, in.p2o, in.drop, thr,
+                eps, K, in.lists[cur * N], left - r, chain);
+          __syncthreads();
+          r += chain[0];
+          lone += chain[0];
+          burst += chain[0];  // a lone round fits the burst
+          nact = chain[1];
+        }
+      }
       if (tid == 0 && ph < P)
         phase_rounds[static_cast<size_t>(b) * P + ph] += r;
       ran += r;
@@ -748,6 +904,7 @@ ksp_arcs_ladder_kernel(const int32_t* __restrict__ cols,
   if (tid == 0) {
     nits[b] += ran;
     bursts[b] += burst;
+    if constexpr (kLone) lones[b] += lone;
     steps[b] = step;
     thresholds[b] = thr;
     phase[b] = ph;
@@ -759,10 +916,12 @@ int launch_ladder(const void* cols, const void* vals, void* prices,
                   void* keys, void* winner, void* p2o, void* dropped,
                   void* nits, void* thresholds, void* scratch,
                   const void* spans, void* steps, void* phase,
-                  void* phase_rounds, void* bursts, int P, double target,
-                  double half_m, int B, int N, int M, int K, int rounds,
-                  cudaStream_t stream) {
-  ksp_arcs_ladder_kernel<T><<<B, kThreads, 0, stream>>>(
+                  void* phase_rounds, void* bursts, void* lones, int P,
+                  double target, double half_m, int B, int N, int M, int K,
+                  int rounds, bool chain, cudaStream_t stream) {
+  auto kernel = chain ? ksp_arcs_ladder_kernel<T, true>
+                      : ksp_arcs_ladder_kernel<T, false>;
+  kernel<<<B, kThreads, 0, stream>>>(
       static_cast<const int32_t*>(cols), static_cast<const T*>(vals),
       static_cast<T*>(prices), static_cast<unsigned long long*>(keys),
       static_cast<int32_t*>(winner), static_cast<int32_t*>(p2o),
@@ -770,7 +929,8 @@ int launch_ladder(const void* cols, const void* vals, void* prices,
       static_cast<T*>(thresholds), static_cast<int32_t*>(scratch),
       static_cast<const double*>(spans), static_cast<double*>(steps),
       static_cast<int32_t*>(phase), static_cast<int32_t*>(phase_rounds),
-      static_cast<int32_t*>(bursts), P, target, half_m, N, M, K, rounds);
+      static_cast<int32_t*>(bursts), static_cast<int32_t*>(lones), P, target,
+      half_m, N, M, K, rounds);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -815,35 +975,41 @@ extern "C" int slap_ksp_arcs_rounds(const void* cols, const void* vals,
 // without the counters, the log and eps, with thresholds [B] updated in
 // place, and spans [B] (float64, each instance's value span), steps [B]
 // (float64, the current phase's step), phase [B] int32, phase_rounds
-// [B, P] int32 and bursts [B] int32 (the rounds that bid in one burst), the
-// last four updated in place; target is the last phase's
-// eps and half_m half the objects the drop threshold counts.  The columns of
-// a row must be distinct.
+// [B, P] int32, bursts [B] int32 (the rounds that bid in one burst) and
+// lones [B] int32 (the rounds of the lone chain), the last five updated in
+// place; target is the last phase's eps and half_m half the objects the
+// drop threshold counts.  chain 0 launches the instance without the lone
+// chain, for measurements (lones untouched).  The columns of a row must be
+// distinct.
 extern "C" int slap_ksp_arcs_ladder(const void* cols, const void* vals,
                                     void* prices, void* keys, void* winner,
                                     void* p2o, void* dropped, void* nits,
                                     void* thresholds, void* scratch,
                                     const void* spans, void* steps,
                                     void* phase, void* phase_rounds,
-                                    void* bursts, int P, double target,
-                                    double half_m,
+                                    void* bursts, void* lones, int P,
+                                    double target, double half_m,
                                     int value_bytes, int B, int N, int M,
-                                    int K, int rounds, void* stream) {
+                                    int K, int rounds, int chain,
+                                    void* stream) {
   if (B <= 0) return 0;
   if (N <= 0 || M <= 0 || K <= 0 || P <= 0 || scratch == nullptr ||
-      bursts == nullptr || (value_bytes == 8) != (winner != nullptr))
+      bursts == nullptr || lones == nullptr ||
+      (value_bytes == 8) != (winner != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   if (value_bytes == 4)
     return launch_ladder<float>(cols, vals, prices, keys, winner, p2o,
                                 dropped, nits, thresholds, scratch, spans,
-                                steps, phase, phase_rounds, bursts, P, target,
-                                half_m, B, N, M, K, rounds, s);
+                                steps, phase, phase_rounds, bursts, lones, P,
+                                target, half_m, B, N, M, K, rounds,
+                                chain != 0, s);
   if (value_bytes == 8)
     return launch_ladder<double>(cols, vals, prices, keys, winner, p2o,
                                  dropped, nits, thresholds, scratch, spans,
-                                 steps, phase, phase_rounds, bursts, P,
-                                 target, half_m, B, N, M, K, rounds, s);
+                                 steps, phase, phase_rounds, bursts, lones, P,
+                                 target, half_m, B, N, M, K, rounds,
+                                 chain != 0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -49,7 +49,13 @@ kernel is bound by their latency, not by bytes.  The design:
   persons to a warp walking 32 slots at a time wait for six of each at
   config A's 176 slots.  Such rounds are most of a config A instance's;
   every other round, and every round of the fixed-ε kernel, takes the
-  walk above.  ``Ladder.bursts`` counts them.
+  walk above.  ``Ladder.bursts`` counts them;
+- the ladder's lone chain: once a phase lists one person over such rows
+  it lists at most one until it ends (the lone bidder drops, or wins and
+  displaces at most one owner, the next round's bidder).  One warp runs
+  those rounds, with no block barrier and no atomic: a round loads the
+  row, gathers its prices and its objects' owners beside them, and lane
+  0 applies the bid.  ``Ladder.lones`` counts them.
 
 ``phase_cycles`` splits the leader thread's cycles by phase
 (``ksparse_kernel.PHASES``); ``stamps`` gives each CTA's start and end;
@@ -136,9 +142,10 @@ def _kernel_lib() -> ctypes.CDLL:
         ]
         lib.slap_ksp_arcs_rounds.restype = ctypes.c_int
         lib.slap_ksp_arcs_ladder.argtypes = [
-            p, p, p, p, p, p, p, p, p, p, p, p, p, p, p, ctypes.c_int,
+            p, p, p, p, p, p, p, p, p, p, p, p, p, p, p, p, ctypes.c_int,
             ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, p,
         ]
         lib.slap_ksp_arcs_ladder.restype = ctypes.c_int
         lib.slap_ksp_arcs_error_string.argtypes = [ctypes.c_int]
@@ -235,7 +242,8 @@ def _arcs_round(columns, values, valid, s: KhoslaState, eps,
     with the densified plane's arithmetic (``ops/auction.py``'s
     ``_top2_profits_dense`` and ``_resolve_and_assign_dense``) over the
     rows of the active persons alone: an instance with no active person
-    comes out unchanged.  ``eps`` is a scalar or one a instance
+    comes out unchanged, and a person with no arc bids nothing and stays
+    active, as in the kernel.  ``eps`` is a scalar or one a instance
     (``[B]``)."""
     b, n, _ = values.shape
     m = s.prices.shape[1]
@@ -261,19 +269,21 @@ def _arcs_round(columns, values, valid, s: KhoslaState, eps,
         eps = eps[inst]
     raw_bid = torch.where(second != neg_inf, best_val - second + eps,
                           price_at_best + eps)
-    bid = torch.where(drop_now, neg_inf, raw_bid)
+    # a person that drops, or has no arc, aims at its instance's dummy
+    # column m and wins nothing
+    idle = drop_now | ~ok.any(dim=1)
+    bid = torch.where(idle, neg_inf, raw_bid)
 
-    # each object takes the largest bid, the smallest person on ties; a
-    # person that drops aims at its instance's dummy column m
-    target = inst * (m + 1) + torch.where(drop_now, m, best_col).long()
+    # each object takes the largest bid, the smallest person on ties
+    target = inst * (m + 1) + torch.where(idle, m, best_col).long()
     max_bid = torch.full((b * (m + 1),), -float("inf"), dtype=dtype,
                          device=dev)
     max_bid.scatter_reduce_(0, target, bid, "amax")
-    top = ~drop_now & (bid == max_bid[target])
+    top = ~idle & (bid == max_bid[target])
     person = person.to(torch.int32)
     winner = torch.full((b * (m + 1),), big, dtype=torch.int32, device=dev)
     winner.scatter_reduce_(0, target, torch.where(top, person, big), "amin")
-    won = ~drop_now & (winner[target] == person)
+    won = ~idle & (winner[target] == person)
     max_bid = max_bid.view(b, m + 1)[:, :m]
     has_winner = max_bid != neg_inf
     assigned = s.p2o != UNASSIGNED
@@ -419,6 +429,7 @@ class Ladder(NamedTuple):
     phase: torch.Tensor       # [B] int32: the current phase
     rounds: torch.Tensor      # [B, P] int32: the rounds run in each phase
     bursts: torch.Tensor      # [B] int32: the rounds that bid in one burst
+    lones: torch.Tensor       # [B] int32: the rounds of the lone chain
 
 
 def ladder_steps(span: float, eps_target: float) -> list:
@@ -452,6 +463,7 @@ def ladder_init(spans, eps_target: float, m: int, dtype,
         rounds=torch.zeros((len(spans), phases), dtype=torch.int32,
                            device=device),
         bursts=torch.zeros(len(spans), dtype=torch.int32, device=device),
+        lones=torch.zeros(len(spans), dtype=torch.int32, device=device),
     )
 
 
@@ -500,7 +512,8 @@ def _check_ladder(values, ladder: Ladder) -> None:
                            ("steps", ladder.steps, torch.float64),
                            ("thresholds", ladder.thresholds, values.dtype),
                            ("phase", ladder.phase, torch.int32),
-                           ("bursts", ladder.bursts, torch.int32)):
+                           ("bursts", ladder.bursts, torch.int32),
+                           ("lones", ladder.lones, torch.int32)):
         if tuple(t.shape) != (b,) or t.dtype != dtype:
             raise ValueError(f"ladder.{name} must be a {dtype} [{b}] tensor")
     r = ladder.rounds
@@ -525,7 +538,9 @@ def ksp_arcs_ladder_reference(columns, values, states: KhoslaState,
     matching and the drops are reset, prices kept.  At most ``rounds``
     rounds; any float dtype; repeated columns as the plane keeps them.
     ``ladder.bursts`` gains the rounds the kernel bids in one burst
-    (:func:`burst_rule`).  Returns ``(states, ladder)``."""
+    (:func:`burst_rule`) and ``ladder.lones`` those of its lone chain:
+    the rounds that list one person, over rows that fit the burst.
+    Returns ``(states, ladder)``."""
     check_arcs(columns, values, states, ladder.thresholds)
     _check_ladder(values, ladder)
     b, _, k = values.shape
@@ -541,8 +556,10 @@ def ksp_arcs_ladder_reference(columns, values, states: KhoslaState,
         if not bool(busy.any()):
             break
         if k <= slots:
-            lad = lad._replace(bursts=lad.bursts + (
-                busy & (live <= persons)).to(torch.int32))
+            lad = lad._replace(
+                bursts=lad.bursts + (busy & (live <= persons)).to(
+                    torch.int32),
+                lones=lad.lones + (live == 1).to(torch.int32))
         eps = torch.where(lad.steps > target, lad.steps, target).to(dtype)
         s = _arcs_round(columns, values, valid, s, eps, lad.thresholds)
         at = lad.phase.long().clamp(max=lad.rounds.shape[1] - 1)
@@ -585,6 +602,16 @@ def ksp_arcs_ladder(columns, values, states: KhoslaState, ladder: Ladder,
     if values.device.type != "cuda":
         raise ValueError(f"ksp_arcs_ladder runs on cpu or cuda, not "
                          f"{values.device}")
+    return _ksp_arcs_ladder_cuda(columns, values, states, ladder, eps_target,
+                                 m, rounds)
+
+
+def _ksp_arcs_ladder_cuda(columns, values, states, ladder, eps_target, m,
+                          rounds, chain=True):
+    """:func:`ksp_arcs_ladder`'s launch on checked CUDA tensors.
+    ``chain=False`` launches the kernel's instance without the lone
+    chain, the rounds as they ran before it, for measurements only: the
+    same results, ``ladder.lones`` left as it was."""
     global LADDER_LAUNCHES
     b, n, k = values.shape
     width = states.prices.shape[1]
@@ -617,8 +644,9 @@ def ksp_arcs_ladder(columns, values, states: KhoslaState, ladder: Ladder,
             lad.thresholds.data_ptr(), scratch.data_ptr(),
             lad.spans.data_ptr(), lad.steps.data_ptr(), lad.phase.data_ptr(),
             lad.rounds.data_ptr(), lad.bursts.data_ptr(),
-            lad.rounds.shape[1], float(eps_target),
-            m / 2.0, 8 if double else 4, b, n, width, k, int(rounds), stream,
+            lad.lones.data_ptr(), lad.rounds.shape[1], float(eps_target),
+            m / 2.0, 8 if double else 4, b, n, width, k, int(rounds),
+            int(chain), stream,
         )
     if rc != 0:
         msg = lib.slap_ksp_arcs_error_string(rc).decode()

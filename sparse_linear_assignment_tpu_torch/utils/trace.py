@@ -33,12 +33,14 @@ SPANS = (SOLVE_BATCH_SPAN, WAIT_SPAN, FINISH_SPAN, INVERT_SPAN, STAGE_SPAN,
 
 #: the program's counters (:func:`counter`), each marked once a batch
 #: that runs an eps-scaling ladder: the largest number of rounds of an
-#: instance's last phase, the largest of each phase's, in order, and the
+#: instance's last phase, the largest of each phase's, in order, the
 #: batch's rounds that bid in one burst beside all its rounds
-#: (``<burst rounds>,<rounds>``, each summed over the batch)
+#: (``<burst rounds>,<rounds>``, each summed over the batch), and its
+#: rounds of the lone chain beside all its rounds (``<lone>,<rounds>``)
 LAST_PHASE_ROUNDS = "slap.last_phase_rounds"
 ROUNDS_BY_PHASE = "slap.rounds_by_phase"
 BURST_ROUNDS = "slap.burst_rounds"
+LONE_ROUNDS = "slap.lone_rounds"
 
 _NO_SPAN = contextlib.nullcontext()
 

@@ -14,12 +14,14 @@ arc ladder kernel as a batch of one (``batch.solve_csr_scaled``).
   float64; an instance with no perfect matching ends with the
   reference's persons unassigned; ``max_rounds`` stops it where the
   batched route stops; the slots are the longest row rounded up to 32;
-  the spans and counters under a recording profiler; every other
+  the spans and counters under a recording profiler; the lone rounds
+  (one active person) counted round by round, never more than the burst
+  rounds, and a ladder without its lone counts refused; every other
   request keeps its route.
 - Card (``card`` marker, skipped without a CUDA device): the route on
   the card, one ladder launch a solve, bit-equal to the plain reference
-  run there; its spans inside ``slap.solve``; every other request keeps
-  its route there too.  No JAX here: on the card run ``python -m pytest
+  run there; its lone rounds those of the plain ladder; its spans inside
+  ``slap.solve``; every other request keeps its route there too.  No JAX here: on the card run ``python -m pytest
   --noconftest tests/test_torch_single_ladder.py -m card``.
 """
 
@@ -329,6 +331,62 @@ def test_spans_and_counters_of_a_recorded_solve(route, tmp_path):
     _route_spans(spans, route[0], solver.nits)
 
 
+def test_lone_counter_of_a_recorded_solve(route, tmp_path):
+    cols, vals = square(9, 64)
+    solver, solution = solver_of(cols, vals)
+    spans = _recorded(lambda: route_solve(solver, solution, False,
+                                          eps_of(64)), tmp_path)
+    sol = route[0]
+    counters = {n.split("=")[0]: n.split("=")[1]
+                for n, _, _ in spans if "=" in n}
+    assert counters[trace.LONE_ROUNDS] == f"{sol.lone_rounds[0]},{solver.nits}"
+    assert 0 < sol.lone_rounds[0] <= sol.burst_rounds[0]
+
+
+def staged_one(cols, vals, n):
+    """One instance's arcs, values and ladder as the route stages them,
+    on the CPU."""
+    counts, c, v = csr(cols, vals)
+    arcs, values = ka.csr_slots(counts, c, -v, "cpu")
+    span = float(v.max() - v.min())
+    return arcs, values, ka.ladder_init(np.array([span]), eps_of(n), n,
+                                        values.dtype, "cpu")
+
+
+@pytest.mark.parametrize("seed,n", [(61, 48), (67, 96)])
+def test_lone_rounds_of_the_route_are_its_one_bidder_rounds(route, seed, n):
+    """The route's lone count equals the plain ladder's rounds that start
+    with one active person, counted one round a call on the same staged
+    arcs, and its answer is theirs."""
+    cols, vals = square(seed, n)
+    solver, solution = solver_of(cols, vals)
+    route_solve(solver, solution, False, eps_of(n))
+    arcs, values, lad = staged_one(cols, vals, n)
+    s = ka.arcs_init(values, n)
+    alone = 0
+    while True:
+        live = int(((s.p2o == UNASSIGNED) & ~s.dropped).sum())
+        if live == 0:
+            break
+        alone += live == 1
+        s, lad = ka.ksp_arcs_ladder(arcs, values, s, lad, eps_of(n), n, 1)
+    assert route[0].lone_rounds.tolist() == [alone] == lad.lones.tolist()
+    assert route[0].burst_rounds.tolist() == lad.bursts.tolist()
+    assert 0 < alone <= int(lad.bursts[0]) < solver.nits
+    np.testing.assert_array_equal(solution.person_to_object,
+                                  s.p2o[0].numpy())
+
+
+def test_a_single_ladder_without_its_lone_counts_is_refused():
+    cols, vals = square(71, 32)
+    arcs, values, lad = staged_one(cols, vals, 32)
+    for bad in (lad._replace(lones=lad.lones.float()),
+                lad._replace(lones=torch.zeros(2, dtype=torch.int32))):
+        with pytest.raises(ValueError, match="ladder.lones"):
+            ka.ksp_arcs_ladder(arcs, values, ka.arcs_init(values, 32), bad,
+                               eps_of(32), 32, 10)
+
+
 def test_slot_list_solve_marks_its_solve_span_alone(tmp_path):
     cols, vals = square(3, 32)
     solver, solution = solver_of(cols, vals)
@@ -404,6 +462,30 @@ def test_route_on_the_card_equals_reference(card, n, k, density):
     assert solver.get_objective(solution) == float(want["objective"][0])
     assert solver.nits == int(want["nits"][0])
     assert solution.num_unassigned == 0
+
+
+@pytest.mark.card
+def test_route_on_the_card_counts_the_plain_ladders_lone_rounds(card,
+                                                                route):
+    """The route's burst and lone rounds, read back with its answer, are
+    the plain ladder's on the same staged arcs, run on the card."""
+    n = 1000
+    cols, vals = square(2029, n, 64, dict(CONFIG, density=0.02),
+                        device=card)
+    solver, solution = solver_of(cols, vals)
+    solver.solve(solution, False, eps=eps_of(n), scale_eps=True, device=card)
+    arcs, values, lad = (x.to(card) if isinstance(x, torch.Tensor) else
+                         ka.Ladder(*(t.to(card) for t in x))
+                         for x in staged_one(cols.cpu(), vals.cpu(), n))
+    s, lad = ka.ksp_arcs_ladder_reference(arcs, values,
+                                          ka.arcs_init(values, n), lad,
+                                          eps_of(n), n, 10_000_000)
+    sol = route[0]
+    assert sol.lone_rounds.tolist() == lad.lones.tolist()
+    assert sol.burst_rounds.tolist() == lad.bursts.tolist()
+    assert 0 < sol.lone_rounds[0] <= sol.burst_rounds[0] < solver.nits
+    np.testing.assert_array_equal(solution.person_to_object,
+                                  s.p2o[0].cpu().numpy())
 
 
 @pytest.mark.card

@@ -13,11 +13,18 @@
   stopped; the counters in a profiler's trace; the burst rounds (a round
   of at most ``PERSONS`` active persons over rows of at most ``SLOTS``
   slots, ``ksparse_arcs.burst_rule``) counted round by round, none past
-  that width.
+  that width; the lone rounds (one active person over such rows) counted
+  the same way, never more than the burst rounds, a person with no arc
+  listed to the end of the budget, a ladder without its lone counts
+  refused.
 - Card (``card`` marker, skipped without a CUDA device): the ladder
   kernel bit-equal to its plain version (prices, ``p2o``, ``nits``, the
-  ladder's state, rounds by phase, burst rounds), whole and continued,
-  on rows of one chunk to one past the widest burst.  No JAX here:
+  ladder's state, rounds by phase, burst and lone rounds), whole and
+  continued, on rows of one chunk to one past the widest burst; its
+  lone chain bit-equal to the plain version and to the kernel's
+  instance without the chain on a config A seed's quickest, median and
+  slowest instances in both value types, stopped inside a chain and
+  continued, and run out by a person with no arc.  No JAX here:
   on the card run ``python -m pytest --noconftest
   tests/test_torch_sparse_ladder.py -m card``.
 """
@@ -357,6 +364,115 @@ def test_burst_counter_reads_zero_past_the_burst_width(entry, tmp_path):
         0, int(sol.rounds_by_phase.sum())]
 
 
+def one_round_at_a_time(columns, work, states, ladder, eps, m):
+    """The plain ladder run one round a call to the end: ``(states,
+    ladder, the rounds that started with one active person, by
+    instance)``."""
+    s, lad = states, ladder
+    alone = torch.zeros(work.shape[0], dtype=torch.int32)
+    while True:
+        live = ((s.p2o == UNASSIGNED) & ~s.dropped).sum(dim=1)
+        if not bool(live.any()):
+            return s, lad, alone
+        alone += (live == 1).to(torch.int32)
+        s, lad = ka.ksp_arcs_ladder(columns, work, s, lad, eps, m, 1)
+
+
+@pytest.mark.parametrize("k", [24, SLOTS, SLOTS + 1])
+def test_lone_rounds_are_the_one_bidder_rounds(k):
+    """The plain ladder, one round a call: an instance's lone count gains
+    one in each round that starts with one active person, where the rows
+    hold at most ``SLOTS`` slots, and the whole run counts the same; it
+    never passes the burst count."""
+    cols, vals = pad_slots(*square(43, 32, b=3, k=24), k)
+    st = port.stage_batch_sparse_device(cols, vals, 32, eps=eps_of(32),
+                                        device="cpu", scale_eps=True)
+    work, eps = st.work_device, st.eps_val
+    s0 = ka.arcs_init(work, 32)
+    _, lad, alone = one_round_at_a_time(st.columns_device, work, s0,
+                                        st.ladder, eps, 32)
+    want = alone if k <= SLOTS else torch.zeros_like(alone)
+    assert torch.equal(lad.lones, want)
+    assert (int(want.sum()) > 0) == (k <= SLOTS)
+    whole = ka.ksp_arcs_ladder(st.columns_device, work, s0, st.ladder, eps,
+                               32, 100_000)[1]
+    assert torch.equal(whole.lones, want)
+    assert bool((whole.lones <= whole.bursts).all())
+
+
+@pytest.mark.parametrize("n", [64, 128, 256])
+def test_lone_rounds_never_pass_the_burst_rounds(n):
+    """Every instance of the scaled batches: lone rounds at most its
+    burst rounds, some of both, and the solve's ``lone_rounds`` those of
+    the ladder."""
+    cols, vals = square(20261018 + n, n)
+    st = port.stage_batch_sparse_device(cols, vals, n, eps=eps_of(n),
+                                        device="cpu", scale_eps=True)
+    sol = port.solve_batch_sparse_stream([st])[0]
+    assert sol.lone_rounds.shape == sol.burst_rounds.shape == (4,)
+    assert (sol.lone_rounds <= sol.burst_rounds).all()
+    assert (sol.lone_rounds > 0).all()
+    assert (sol.burst_rounds < sol.nits).all()
+
+
+def test_a_person_with_no_arc_runs_out_the_budget():
+    """Person 0 lists no arc (the staging refuses such a person; the
+    ladder takes it): once the others are matched it is the one active
+    person of every round, listed to the end of the budget, each round a
+    lone round, and the phase never ends."""
+    cols, vals = square(47, 32, b=2, k=24)
+    cols[:, 0], vals[:, 0] = -1, 0.0
+    work = -vals.double()
+    mask = cols >= 0
+    spans = (torch.where(mask, vals, -np.inf).amax(dim=(1, 2)).double()
+             - torch.where(mask, vals, np.inf).amin(dim=(1, 2)).double())
+    lad = ka.ladder_init(spans.numpy(), eps_of(32), 32, torch.float64, "cpu")
+    s0 = ka.arcs_init(work, 32)
+    budget = 400
+    s, got = ka.ksp_arcs_ladder(cols, work, s0, lad, eps_of(32), 32, budget)
+    assert s.nits.tolist() == [budget, budget]
+    assert got.phase.tolist() == [0, 0]
+    assert got.rounds[:, 0].tolist() == [budget, budget]
+    live = (s.p2o == UNASSIGNED) & ~s.dropped
+    assert live[:, 0].all() and int(live.sum()) == 2
+    # the rounds with the others still bidding, then the lone ones
+    step, step_lad, alone = s0, lad, torch.zeros(2, dtype=torch.int32)
+    for _ in range(budget):
+        alone += (((step.p2o == UNASSIGNED) & ~step.dropped).sum(dim=1)
+                  == 1).to(torch.int32)
+        step, step_lad = ka.ksp_arcs_ladder(cols, work, step, step_lad,
+                                            eps_of(32), 32, 1)
+    assert torch.equal(got.lones, alone) and bool((alone > 0).all())
+    for f in STATE:
+        assert torch.equal(getattr(s, f), getattr(step, f)), f
+
+
+def test_a_ladder_without_its_lone_counts_is_refused():
+    cols, vals = square(53, 32, b=2, k=24)
+    st = port.stage_batch_sparse_device(cols, vals, 32, eps=eps_of(32),
+                                        device="cpu", scale_eps=True)
+    work = st.work_device
+    for bad in (st.ladder._replace(lones=st.ladder.lones.long()),
+                st.ladder._replace(lones=st.ladder.lones[:1])):
+        with pytest.raises(ValueError, match="ladder.lones"):
+            ka.ksp_arcs_ladder(st.columns_device, work,
+                               ka.arcs_init(work, 32), bad, st.eps_val, 32,
+                               10)
+
+
+def test_lone_counter_marks_a_recorded_solve(tmp_path):
+    """``slap.lone_rounds=<lone>,<rounds>`` once a batch, the batch's lone
+    rounds beside all its rounds."""
+    cols, vals = square(59, 32, b=2, k=24)
+    sol, names = recorded(
+        tmp_path, lambda: scaled("staged", cols, vals, 32, eps_of(32)))
+    lones = marked(names, trace.LONE_ROUNDS)
+    assert len(lones) == 2  # one a batch
+    assert lones[-1] == [int(sol.lone_rounds.sum()),
+                         int(sol.rounds_by_phase.sum())]
+    assert 0 < lones[-1][0] <= int(sol.burst_rounds.sum())
+
+
 def test_a_ladder_without_its_burst_counts_is_refused():
     cols, vals = square(41, 32, b=2, k=24)
     st = port.stage_batch_sparse_device(cols, vals, 32, eps=eps_of(32),
@@ -429,3 +545,121 @@ def test_ladder_kernel_equals_plain_on_card(card, n, k, dtype, density):
         for x, y in zip(a, b):
             assert torch.equal(x, y)
     assert ka.LADDER_LAUNCHES == before + 4
+
+
+def card_config_a(card, seed, b, dtype):
+    """``b`` instances of config A (the cell's side, slots and law) made
+    on the card from ``seed`` and staged with ``scale_eps``: float64 at
+    the cell's eps; float32 on the values cut to integers at eps =
+    2^-12, which float32 keeps.  Returns ``(staged, n, eps)``."""
+    cell = plugins.cell("ksparse-crate-a.b128x2-n10000")
+    n, k = cell.spec["rows"], cell.spec["arcs"]
+    cols, vals = square(seed, n, b=b, k=k, config=cell.config, device=card)
+    eps = 1.0 / cell.spec["entry_args"]["eps_denominator"]
+    if dtype == torch.float32:
+        vals = torch.where(cols >= 0, vals.floor(), 0.0)
+        eps = 2.0**-12
+    st = port.stage_batch_sparse_device(cols, vals, n, eps=eps,
+                                        scale_eps=True)
+    assert st.work_device.dtype == dtype
+    return st, n, eps
+
+
+def ladders_equal(a, b, skip=()):
+    """Two ``(states, ladder)`` results equal bit for bit, the ladder's
+    fields ``skip`` left out."""
+    for f in STATE:
+        assert torch.equal(getattr(a[0], f), getattr(b[0], f)), f
+    for f in ka.Ladder._fields:
+        if f not in skip:
+            assert torch.equal(getattr(a[1], f), getattr(b[1], f)), f
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_lone_chain_equals_plain_and_the_rounds_before_it(card, dtype):
+    """A config A seed's quickest, median and slowest of 8 instances, as
+    the batch launch left them and alone: the kernel equals its plain
+    version and its instance without the lone chain (the rounds as they
+    ran before it), but for the lone count that instance leaves as it
+    was; each ran lone rounds, no more than its burst rounds."""
+    st, n, eps = card_config_a(card, 2026102701, 8, dtype)
+    c, w = st.columns_device, st.work_device
+    budget = 1 << 20
+    got = ka.ksp_arcs_ladder(c, w, ka.arcs_init(w, n), st.ladder, eps, n,
+                             budget)
+    assert not bool(((got[0].p2o == UNASSIGNED) & ~got[0].dropped).any())
+    order = torch.argsort(got[0].nits.cpu(), stable=True)
+    at = order[[0, len(order) // 2, -1]].to(card)
+    c3, w3 = c[at].contiguous(), w[at].contiguous()
+    lad3 = ka.Ladder(*(x[at].contiguous() for x in st.ladder))
+    s3 = ka.arcs_init(w3, n)
+    want = ka.ksp_arcs_ladder_reference(c3, w3, s3, lad3, eps, n, budget)
+    rows = (got[0]._replace(**{f: getattr(got[0], f)[at] for f in STATE}),
+            ka.Ladder(*(x[at] for x in got[1])))
+    ladders_equal(rows, want)
+    ladders_equal(ka.ksp_arcs_ladder(c3, w3, s3, lad3, eps, n, budget), want)
+    old = ka._ksp_arcs_ladder_cuda(c3, w3, s3, lad3, eps, n, budget,
+                                   chain=False)
+    ladders_equal(old, want, skip=("lones",))
+    assert torch.equal(old[1].lones, lad3.lones)
+    lones, bursts = want[1].lones, want[1].bursts
+    assert bool((lones > 0).all()) and bool((lones <= bursts).all())
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_a_launch_that_ends_inside_a_chain_continues(card, dtype):
+    """Four config A instances stopped a few rounds before the first
+    one's second phase ends, inside its lone chain, then continued one
+    round a launch across that phase's end and on to the end: the state
+    of one whole launch, with the chain and without it."""
+    st, n, eps = card_config_a(card, 2026102702, 4, dtype)
+    c, w = st.columns_device, st.work_device
+    s0 = ka.arcs_init(w, n)
+    whole = ka.ksp_arcs_ladder(c, w, s0, st.ladder, eps, n, 1 << 20)
+    end = int(whole[1].rounds[0, :2].sum())
+    for before in (3, 5, 10, 30, 100):  # the first stop inside the chain
+        part = ka.ksp_arcs_ladder(c, w, s0, st.ladder, eps, n, end - before)
+        live = (part[0].p2o == UNASSIGNED) & ~part[0].dropped
+        if int(live[0].sum()) == 1:
+            break
+    assert int(live[0].sum()) == 1 and int(part[1].phase[0]) == 1
+    assert int(part[1].lones[0]) > 0
+    old = ka._ksp_arcs_ladder_cuda(c, w, *part, eps, n, 1 << 20,
+                                   chain=False)
+    for _ in range(5):
+        part = ka.ksp_arcs_ladder(c, w, *part, eps, n, 1)
+    part = ka.ksp_arcs_ladder(c, w, *part, eps, n, 1 << 20)
+    ladders_equal(part, whole)
+    ladders_equal(old, whole, skip=("lones",))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_a_lone_bidder_with_no_arc_runs_out_the_budget_on_card(card, dtype):
+    """Person 0 lists no arc: the kernel runs the launch's budget out on
+    it, as its plain version and its instance without the chain do."""
+    cols, vals = square(73, 300, b=2, k=48, device=card)
+    cols[:, 0], vals[:, 0] = -1, 0.0
+    if dtype == torch.float32:
+        vals = vals.floor()
+    work = -vals.to(dtype)
+    mask = cols >= 0
+    spans = (torch.where(mask, vals, -np.inf).amax(dim=(1, 2)).double()
+             - torch.where(mask, vals, np.inf).amin(dim=(1, 2)).double())
+    eps = eps_of(300) if dtype == torch.float64 else 2.0**-8
+    lad = ka.ladder_init(spans.cpu().numpy(), eps, 300, dtype, card)
+    s0 = ka.arcs_init(work, 300)
+    budget = 3000
+    got = ka.ksp_arcs_ladder(cols, work, s0, lad, eps, 300, budget)
+    want = ka.ksp_arcs_ladder_reference(cols, work, s0, lad, eps, 300,
+                                        budget)
+    ladders_equal(got, want)
+    old = ka._ksp_arcs_ladder_cuda(cols, work, s0, lad, eps, 300, budget,
+                                   chain=False)
+    ladders_equal(old, want, skip=("lones",))
+    assert got[0].nits.tolist() == [budget, budget]
+    assert bool((got[1].lones > 0).all())
+    live = (got[0].p2o == UNASSIGNED) & ~got[0].dropped
+    assert bool(live[:, 0].all()) and int(live.sum()) == 2
